@@ -1,15 +1,20 @@
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Phases, each of which fails the run on error:
   1. card     print the card's name and power limit (nvidia-smi);
-  2. build    compile the CUDA kernels from metaviterbinet_tpu_torch/kernels/csrc
-              (one nvcc per source, started together);
-  3. kernels  hold each kernel against its plain PyTorch version on the card
-              at 4096 and 1000 words x 136 and 41 steps and at the main
-              path's 300 x 136 (VA bit-identical, ViterbiNet < 1e-3 bit
-              mismatch);
+  2. build    compile the four CUDA kernels from
+              metaviterbinet_tpu_torch/kernels/csrc (one nvcc per source,
+              started together);
+  3. kernels  hold each kernel against its plain PyTorch version on the card:
+              K1 (ViterbiNet detect, < 1e-3 bit mismatch) and K2 (VA detect,
+              bit-identical) at 4096 and 1000 words x 136 and 41 steps and at
+              the aggregated path's 300 x 136; K5 (ACS over priors from the
+              f32 MLP, bit-identical) at the engine's 1 x 136, 300 x 136 and
+              4096 x 41; K6 (fused online Adam) at T = 136 from the same
+              params and moments: 40 steps, a resumed second call of 40, and
+              the protocol's 200 steps on nine received words;
   4. slice    the aggregated coded-BER eval at the protocol's full width
               (300 words x 136 symbols, RS nsym=2, 4-tap time-decay fading
               channel): VA over 7..12 dB through Trainer.evaluate, and a
@@ -17,10 +22,22 @@ Phases, each of which fails the run on error:
               are zeroed just before and read just after; then one VA and
               one ViterbiNet point under torch.profiler for the device's
               busy time;
-  5. width    time both kernels and their plain versions at 300 x 136 and
-              65536 x 136: device time per call from a CUDA graph of
-              back-to-back calls, and the time of one eager call;
-  6. report   a `{"kernels": [...]}` line, then the card line, then
+  5. online   the paper's by-word protocol through Trainer.evaluate: 300
+              blocks on the type-2 test channel at 10 dB, in a temporary
+              weights directory so that the checkpoint is trained on the
+              miss: meta_vnet in meta mode (meta_train, then MAML every 5
+              blocks and K6 on every gated block) and vnet in joint mode
+              (train, then detection only), each against its recorded
+              reference band; launch counts, buffer fill, seconds of
+              train-on-miss, of the 300 blocks and of their parts (CUDA
+              events), and the device's idle share over 300 blocks
+              (torch.profiler, a second run); then the first 25
+              meta-mode blocks once on the card and once on the CPU;
+  6. width    time the kernels and their plain versions on the device (a CUDA
+              graph of back-to-back calls) and per eager call: K1 and K2 at
+              300 x 136 and 65536 x 136, K5 at 1 x 136 and 300 x 136, K6 at
+              T = 136 with 200 steps;
+  7. report   a `{"kernels": [...]}` line, then the card line, then
               `{"ok": true, "device": {...}}` as the last line.
 
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -31,15 +48,21 @@ import copy
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from metaviterbinet_tpu_torch import Config
+from metaviterbinet_tpu_torch.data.dataset import ChannelDataset
+from metaviterbinet_tpu_torch.ecc.rs import rs_encode_bits
 from metaviterbinet_tpu_torch.evaluation.trainer import Trainer
-from metaviterbinet_tpu_torch.kernels import acs
+from metaviterbinet_tpu_torch.kernels import acs, online_sgd
 from metaviterbinet_tpu_torch.models import va, viterbinet
+from metaviterbinet_tpu_torch.online.engine import Draws, run_online
+from metaviterbinet_tpu_torch.ops.trellis import calculate_states
+from metaviterbinet_tpu_torch.train.optim import ADAM_B1, ADAM_B2, ADAM_EPS, Optimizer
 
 SEED = 20260
 # H100 SXM published peaks (NVIDIA data sheet, dense): device memory rate,
@@ -47,8 +70,24 @@ SEED = 20260
 HBM_BYTES_PER_S = 3.35e12
 BF16_TC_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12
+N_SMS = 132
 VA_BAND = (0.014036, 0.006)  # resources/reference_baselines.json va_full_csi coded_nsym2 10 dB
+# resources/reference_baselines.json by_word_campaign_snr10.mean_data_ber, the
+# mean of the reference's two seeds, with tests/test_parity_anchor.py's band
+META_VNET_BAND = (0.028588, 0.012)
+VNET_JOINT_BAND = (0.031814, 0.012)
 WIDE_W, PROTO_W, T_PROTO = 65536, 300, 136
+K6_ITERS = 200  # Config.self_supervised_iterations, the protocol's
+# K6 against its plain version: the JAX kernel's contract (5e-6 after 40
+# steps, 2e-5 after resuming for 40 more) and the limit for 200 steps
+K6_LIMITS = {"40 steps": 5e-6, "resumed 40 + 40": 2e-5, "200 steps": 1e-4}
+K6_WORDS = tuple(range(1, 10))  # data blocks of adapt_inputs' 10 dB batch
+CARD_CPU_BLOCKS = 25
+# card against CPU over the first 25 meta-mode blocks: each block's SER
+# within two of its 120 bits, the mean over the data blocks within 2e-3
+CARD_CPU_BLOCK_TOL, CARD_CPU_MEAN_TOL = 2.0 / 120, 2e-3
+KERNELS = ("fused_viterbinet_detect", "fused_va_detect", "viterbi_decode_kernel",
+           "online_adapt_viterbinet")
 
 
 def fail(msg: str) -> None:
@@ -60,6 +99,19 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     return out.splitlines()[0]
+
+
+def wrapper(name: str):
+    return getattr(online_sgd if name == "online_adapt_viterbinet" else acs, name)
+
+
+def zero_launches() -> None:
+    for name in KERNELS:
+        wrapper(name).launches = 0
+
+
+def read_launches() -> dict:
+    return {name: wrapper(name).launches for name in KERNELS}
 
 
 def _event_ms(fn) -> float:
@@ -104,26 +156,69 @@ def graph_ms(fn, per_graph: int = 20, replays: int = 10) -> float:
 
 
 def device_busy(fn) -> dict:
-    """Run fn() once under torch.profiler; return the host-clock wall time,
-    the union of the device's activity intervals, and the count of device
-    activities (kernels, copies, fills). The profiler's own host cost
+    """Run fn() once under torch.profiler (device activity only); return the
+    host-clock wall time, the union of the device's activity intervals, and
+    their count (kernels, copies, fills). The profiler's own host cost
     lengthens the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy_us, end = 0.0, float("-inf")
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA)
+    busy_ns, end = 0, -1
     for a, b in spans:
         if b > end:
-            busy_us += b - max(a, end)
+            busy_ns += b - max(a, end)
             end = b
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3, "device_activities": len(spans)}
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ns / 1e6, "device_activities": len(spans),
+            "idle_share": (1 - busy_ns / 1e6 / wall_ms) if spans else None}
+
+
+def busy_line(what: str, b: dict) -> str:
+    if b["device_activities"] == 0:
+        return (f"{what} under torch.profiler: {b['wall_ms']:.3f} ms wall; device time not "
+                "measured (the profiler saw no device activity)")
+    return (f"{what} under torch.profiler: {b['wall_ms']:.3f} ms wall, device busy "
+            f"{b['device_busy_ms']:.3f} ms over {b['device_activities']} activities, "
+            f"idle share {b['idle_share']:.4f}")
+
+
+class CudaSpans:
+    """`spans` for the online engine: per named part, CUDA events on the
+    device timeline and the host clock, summed per name after the run."""
+
+    def __init__(self):
+        self.events: dict[str, list] = {}
+        self.host_s: dict[str, float] = {}
+
+    def __call__(self, name: str):
+        spans = self
+
+        class _Span:
+            def __enter__(self):
+                self.pair = (torch.cuda.Event(enable_timing=True),
+                             torch.cuda.Event(enable_timing=True))
+                self.pair[0].record()
+                self.t0 = time.perf_counter()
+
+            def __exit__(self, *exc):
+                spans.host_s[name] = spans.host_s.get(name, 0.0) + time.perf_counter() - self.t0
+                self.pair[1].record()
+                spans.events.setdefault(name, []).append(self.pair)
+
+        return _Span()
+
+    def seconds(self) -> dict:
+        """name -> (count, seconds on the device timeline, seconds on the host)."""
+        torch.cuda.synchronize()
+        return {name: (len(pairs), sum(a.elapsed_time(b) for a, b in pairs) / 1e3,
+                       self.host_s[name]) for name, pairs in self.events.items()}
 
 
 # --------------------------------------------------------------- bounds
@@ -153,6 +248,39 @@ def vnet_bound_ms(W: int, T: int, S: int) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def decode_bound_ms(W: int, T: int, S: int) -> tuple[float, str]:
+    """Least time for viterbi_decode_kernel: the priors in and the bits out
+    once, against the 3.5 S f32 ACS ops per symbol."""
+    t_bytes = 4.0 * (W * T * S + W * T) / HBM_BYTES_PER_S
+    t_ops = W * T * 3.5 * S / F32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def adapt_ops(T: int, S: int, n_iters: int) -> float:
+    """f32 operations of n fused Adam steps of CE over states on T symbols:
+    per step the forward (w1 y + b1 and the sigmoid 6 x 100, W2 h1 2 x 50 x
+    100, b2 + relu 2 x 50, W3 h2 2 x S x 50, b3 S), the softmax and its
+    gradient (7 S), the backward (dW3 and dh2 2 x S x 50 each, the relu mask
+    50, dW2 and dh1 2 x 50 x 100 each, db2 50, dz1 3 x 100, dw1 2 x 100, db1
+    100, db3 S) per symbol, and Adam's ~14 operations per parameter."""
+    H1, H2 = viterbinet.HIDDEN1, viterbinet.HIDDEN2
+    per_symbol = (6 * H1 + 2 * H2 * H1 + 2 * H2 + 2 * S * H2 + S + 7 * S
+                  + 2 * S * H2 + S + 2 * S * H2 + H2 + 2 * 2 * H2 * H1 + H2
+                  + 3 * H1 + 2 * H1 + H1)
+    n_params = H1 * 2 + H2 * (H1 + 1) + S * (H2 + 1)
+    return n_iters * (per_symbol * T + 14 * n_params)
+
+
+def adapt_bound_ms(T: int, S: int, n_iters: int) -> tuple[float, str]:
+    """Least time for online_adapt_viterbinet: y and the states in once, the
+    params and both moments in and out once, against adapt_ops at the f32
+    rate."""
+    n_params = viterbinet.HIDDEN1 * 2 + viterbinet.HIDDEN2 * (viterbinet.HIDDEN1 + 1) + S * (viterbinet.HIDDEN2 + 1)
+    t_bytes = 4.0 * (2 * T + 6 * n_params) / HBM_BYTES_PER_S
+    t_ops = adapt_ops(T, S, n_iters) / F32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 # --------------------------------------------------------------- inputs
 
 def kernel_inputs(W: int, T: int, gen: torch.Generator, S: int = 16):
@@ -166,6 +294,36 @@ def kernel_inputs(W: int, T: int, gen: torch.Generator, S: int = 16):
     conv = sum(h[:, L - 1 - i, None] * s[:, i:T + i] for i in range(L))
     y = (conv + 10 ** -0.5 * torch.randn((W, T), generator=gen, device=dev)).contiguous()
     return y, va.state_means(h).contiguous()
+
+
+def mlp_priors(model: viterbinet.ViterbiNet, y: torch.Tensor) -> torch.Tensor:
+    """The engine's K5 input: negated f32 logits of the MLP."""
+    with torch.no_grad():
+        return (-viterbinet.score(model, y)).contiguous()
+
+
+def adapt_inputs(word: int = 1):
+    """An engine-shaped K6 input, made on the CPU from seeds and moved to the
+    card: block `word` of the 10 dB type-2 test channel, its own trellis
+    states (the re-encoded word), and seeded params."""
+    cfg = Config(val_frames=1, fading_taps_type=2)
+    tx, rx = ChannelDataset(cfg, "val", "cpu").get(10.0, cfg.gamma)
+    states = calculate_states(cfg.memory_length, rs_encode_bits(tx[word:word + 1], cfg.n_symbols))
+    model = viterbinet.init_params(16, torch.Generator().manual_seed(SEED), device="cpu")
+    params = {k: v.detach().cuda() for k, v in viterbinet.param_dict(model).items()}
+    return params, rx[word].contiguous().cuda(), states.cuda()
+
+
+def _copy_state(params: dict, state):
+    p = {k: v.clone() for k, v in params.items()}
+    s = copy.copy(state)
+    s.mu = {k: v.clone() for k, v in state.mu.items()}
+    s.nu = {k: v.clone() for k, v in state.nu.items()}
+    return p, s
+
+
+def _max_diff(a: dict, b: dict) -> float:
+    return max(float((a[k] - b[k]).abs().max()) for k in a)
 
 
 # --------------------------------------------------------------- phases
@@ -182,34 +340,82 @@ def phase_build() -> None:
 
 
 KERNEL_CHECK_SHAPES = ((4096, T_PROTO), (4096, 41), (1000, T_PROTO), (1000, 41), (PROTO_W, T_PROTO))
+DECODE_CHECK_SHAPES = ((1, T_PROTO), (PROTO_W, T_PROTO), (4096, 41))
+
+
+def check_bits(name: str, W: int, T: int, got, want, limit: float) -> dict:
+    torch.cuda.synchronize()
+    if got.shape != (W, T) or not bool(((got == 0) | (got == 1)).all()):
+        fail(f"{name} {W}x{T}: output is not a [W, T] tensor of bits")
+    err = float((got - want).abs().max())
+    rate = float((got != want).float().mean())
+    print(f"{name} {W}x{T}: bit mismatch {rate:.3e} vs the plain version "
+          f"(limit {'bit-identical' if limit == 0 else f'< {limit:g}'})")
+    if rate > limit or (limit > 0 and rate >= limit):
+        fail(f"{name} {W}x{T}: mismatch {rate} against its plain version")
+    return {"max_abs_err": err, "bit_mismatch_rate": rate}
 
 
 def phase_kernels(model: viterbinet.ViterbiNet, gen: torch.Generator) -> dict:
     """Each kernel against its plain version on the card. Returns, per
-    (kernel, W, T), the largest |kernel - plain| over the output bits and
-    the bit mismatch rate."""
+    (kernel, W, T), the largest |kernel - plain| over the outputs (and the
+    bit mismatch rate of the detect kernels)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("plain versions' f32 matmuls: torch.backends.cuda.matmul.allow_tf32 = False")
     checks = {}
     for W, T in KERNEL_CHECK_SHAPES:
         y, mu = kernel_inputs(W, T, gen)
-        for name, kernel, plain, limit in (
-                ("fused_va_detect", lambda: acs.fused_va_detect(y, mu),
-                 lambda: acs.fused_va_detect_plain(y, mu), 0.0),
-                ("fused_viterbinet_detect", lambda: acs.fused_viterbinet_detect(model, y),
-                 lambda: acs.fused_viterbinet_detect_plain(model, y), 1e-3)):
-            got, want = kernel(), plain()
-            torch.cuda.synchronize()
-            if got.shape != (W, T) or not bool(((got == 0) | (got == 1)).all()):
-                fail(f"{name} {W}x{T}: output is not a [W, T] tensor of bits")
-            err = float((got - want).abs().max())
-            rate = float((got != want).float().mean())
-            print(f"{name} {W}x{T}: bit mismatch {rate:.3e} vs the plain version "
-                  f"(limit {'bit-identical' if limit == 0 else f'< {limit:g}'})")
-            if rate > limit or (limit > 0 and rate >= limit):
-                fail(f"{name} {W}x{T}: mismatch {rate} against its plain version")
-            checks[(name, W, T)] = {"max_abs_err": err, "bit_mismatch_rate": rate}
+        checks[("fused_va_detect", W, T)] = check_bits(
+            "fused_va_detect", W, T, acs.fused_va_detect(y, mu),
+            acs.fused_va_detect_plain(y, mu), 0.0)
+        checks[("fused_viterbinet_detect", W, T)] = check_bits(
+            "fused_viterbinet_detect", W, T, acs.fused_viterbinet_detect(model, y),
+            acs.fused_viterbinet_detect_plain(model, y), 1e-3)
+    for W, T in DECODE_CHECK_SHAPES:
+        priors = mlp_priors(model, kernel_inputs(W, T, gen)[0])
+        checks[("viterbi_decode_kernel", W, T)] = check_bits(
+            "viterbi_decode_kernel", W, T, acs.viterbi_decode_kernel(priors),
+            acs.viterbi_decode_kernel_plain(priors), 0.0)
+
+    # K6: kernel and plain version from the same params and zero moments
+    params, y, states = adapt_inputs(1)
+    state = Optimizer("Adam", 1e-3).init(params)
+    (pk, sk), (pp, sp) = _copy_state(params, state), _copy_state(params, state)
+    errs = {}
+    for label, n in (("40 steps", 40), ("resumed 40 + 40", 40)):
+        online_sgd.online_adapt_viterbinet(pk, sk, y, states, n, 1e-3)
+        online_sgd.online_adapt_viterbinet_plain(pp, sp, y, states, n, 1e-3)
+        errs[label] = _max_diff(pk, pp)
+    if (sk.count, sp.count) != (80, 80):
+        fail(f"online_adapt_viterbinet: step counts {sk.count}, {sp.count}")
+    # the protocol's 200 steps on each of words 1..9: Adam on one word
+    # amplifies rounding differences once its fit saturates, so how far two
+    # f32 summation orders drift apart depends on the word; the median over
+    # the nine is held to the limit, and every word is printed
+    per_word, resumed = [], None
+    for word in K6_WORDS:
+        params_w, y_w, states_w = adapt_inputs(word)
+        state_w = Optimizer("Adam", 1e-3).init(params_w)
+        (pk, sk), (pp, sp) = _copy_state(params_w, state_w), _copy_state(params_w, state_w)
+        online_sgd.online_adapt_viterbinet(pk, sk, y_w, states_w, K6_ITERS, 1e-3)
+        online_sgd.online_adapt_viterbinet_plain(pp, sp, y_w, states_w, K6_ITERS, 1e-3)
+        per_word.append(_max_diff(pk, pp))
+        if resumed is None:  # recorded, not held to a limit: 200 more steps
+            online_sgd.online_adapt_viterbinet(pk, sk, y_w, states_w, K6_ITERS, 1e-3)
+            online_sgd.online_adapt_viterbinet_plain(pp, sp, y_w, states_w, K6_ITERS, 1e-3)
+            resumed = _max_diff(pk, pp)
+    errs["200 steps"] = float(np.median(per_word))
+    for label, err in errs.items():
+        print(f"online_adapt_viterbinet T={T_PROTO}, {label}: max |dparam| {err:.3e} vs the "
+              f"plain version (limit {K6_LIMITS[label]:g}"
+              f"{'; median over words 1..9' if label == '200 steps' else ''})")
+        if not err <= K6_LIMITS[label]:
+            fail(f"online_adapt_viterbinet {label}: {err} against its plain version")
+    drift = {"200 steps, words 1..9": per_word, "word 1, resumed 200 + 200": resumed}
+    print(f"online_adapt_viterbinet drift: {drift}")
+    checks[("online_adapt_viterbinet", 1, T_PROTO)] = {"max_abs_err": errs["200 steps"],
+                                                        "by_check": errs, "drift": drift}
     return checks
 
 
@@ -228,8 +434,7 @@ def phase_slice(model: viterbinet.ViterbiNet) -> dict:
     Trainer(vnet_cfg, "va", verbose=False).evaluate()
     Trainer(vnet_cfg, "vnet", params=model, verbose=False).evaluate()
 
-    acs.fused_va_detect.launches = 0
-    acs.fused_viterbinet_detect.launches = 0
+    zero_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sers = va_trainer.evaluate()
@@ -239,14 +444,13 @@ def phase_slice(model: viterbinet.ViterbiNet) -> dict:
     vnet_ser = float(vnet_trainer.evaluate()[0])
     torch.cuda.synchronize()
     vnet_s = time.perf_counter() - t0
-    launches = {"fused_va_detect": acs.fused_va_detect.launches,
-                "fused_viterbinet_detect": acs.fused_viterbinet_detect.launches}
+    launches = read_launches()
 
     snrs = [float(s) for s in cfg.snr_range("val")]
     for snr, ser in zip(snrs, sers):
         print(f"VA coded BER at {snr:g} dB: {ser:.6f}")
     print(f"vnet (seeded random params) coded BER at 10 dB: {vnet_ser:.6f}")
-    print(f"main-path launches: {launches}")
+    print(f"aggregated main-path launches: {launches}")
     va_per_1k = va_s / len(snrs) / n_words * 1000
     vnet_per_1k = vnet_s / n_words * 1000
     print(f"VA aggregated eval: {va_per_1k:.6f} s per 1000 words (mean of {len(snrs)} points, "
@@ -260,23 +464,17 @@ def phase_slice(model: viterbinet.ViterbiNet) -> dict:
         fail(f"VA coded BER at 10 dB {ber10} outside {VA_BAND[0]} +- {VA_BAND[1]}")
     if not (np.isfinite(vnet_ser) and 0.0 <= vnet_ser <= 1.0):
         fail(f"vnet coded BER {vnet_ser} is not in [0, 1]")
-    if launches["fused_va_detect"] != len(snrs) or launches["fused_viterbinet_detect"] != 1:
-        fail(f"the main path did not go through the kernels: {launches}")
+    if (launches["fused_va_detect"], launches["fused_viterbinet_detect"]) != (len(snrs), 1):
+        fail(f"the aggregated path did not go through the kernels: {launches}")
 
     # the device's share of one point (throwaway trainers, after the counts
     # were read)
     busy = {}
     for name, trainer in (("va", Trainer(vnet_cfg, "va", verbose=False)),
                           ("vnet", Trainer(vnet_cfg, "vnet", params=model, verbose=False))):
-        busy[name] = b = device_busy(
+        busy[name] = device_busy(
             lambda: trainer.single_eval_at_point(trainer.params, 10.0, cfg.gamma))
-        if b["device_activities"] == 0:
-            print(f"{name} point at 10 dB under torch.profiler: {b['wall_ms']:.3f} ms wall; "
-                  "device time not measured (the profiler saw no device activity)")
-        else:
-            print(f"{name} point at 10 dB under torch.profiler: {b['wall_ms']:.3f} ms wall, "
-                  f"device busy {b['device_busy_ms']:.3f} ms over {b['device_activities']} "
-                  f"activities, idle share {1 - b['device_busy_ms'] / b['wall_ms']:.4f}")
+        print(busy_line(f"{name} point at 10 dB", busy[name]))
 
     # the same 10 dB batch through the CUDA path and through the plain CPU path
     cpu_va = Trainer(cfg, "va", device="cpu", verbose=False)
@@ -295,33 +493,218 @@ def phase_slice(model: viterbinet.ViterbiNet) -> dict:
             "va_ber": [float(s) for s in sers], "vnet_ber_10db": vnet_ser, "busy": busy}
 
 
+def online_cfg(mode: str, weights_dir: str) -> Config:
+    """The by-word protocol of scripts/parity_campaign.py at 10 dB: 300 blocks
+    of 120 info bits + RS nsym=2 on the type-2 test channel, train-on-miss
+    at the default train size."""
+    modes = {"meta": dict(self_supervised=True, online_meta=True, weights_init="last_frame"),
+             "joint": dict(self_supervised=False, online_meta=False)}
+    return Config(eval_mode="by_word", fading_taps_type=2, val_frames=12, use_ecc=True,
+                  n_symbols=2, val_SNR_start=10.0, val_SNR_end=10.0, train_SNR_start=10.0,
+                  train_SNR_end=10.0, weights_dir=weights_dir, **modes[mode])
+
+
+def run_by_word(name: str, mode: str, weights_dir: str, band: tuple) -> dict:
+    cfg = online_cfg(mode, weights_dir)
+    di = cfg.data_indices("val")
+    trainer = Trainer(cfg, name, verbose=False)
+    # the user path is trainer.evaluate(), whose first step is this load;
+    # on the miss it trains, so its time and launches are read apart
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.load_weights(10.0, cfg.gamma)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = read_launches()
+
+    spans = CudaSpans()
+    trainer.spans = spans
+    zero_launches()
+    t0 = time.perf_counter()
+    sers = trainer.evaluate()
+    torch.cuda.synchronize()
+    blocks_s = time.perf_counter() - t0
+    launches = read_launches()
+    result = trainer.online_result
+    parts = spans.seconds()
+    mean_ber = float(np.mean(sers[di]))
+    print(f"{name} {mode} mode: train-on-miss {train_s:.3f} s (launches {train_launches}); "
+          f"300 blocks {blocks_s:.3f} s; parts (count, s on the device timeline from CUDA "
+          f"events, s on the host clock): "
+          f"{parts}")
+    print(f"{name} {mode} mode: buffer fill {result.n_buffer}, {result.n_gated} gated blocks, "
+          f"by-word launches {launches}")
+    print(f"{name} {mode} mode: mean coded BER over the {len(di)} data blocks at 10 dB "
+          f"{mean_ber:.6f} (reference band {band[0]} +- {band[1]})")
+    if sers.shape != (cfg.n_words("val"),) or not np.all(np.isfinite(sers)):
+        fail(f"{name} {mode}: SER per block is not 300 finite values")
+    if abs(mean_ber - band[0]) > band[1]:
+        fail(f"{name} {mode}: mean data BER {mean_ber} outside {band[0]} +- {band[1]}")
+    if launches["viterbi_decode_kernel"] != cfg.n_words("val"):
+        fail(f"{name} {mode}: K5 launched {launches['viterbi_decode_kernel']} times, not once "
+             "per block")
+    want_k6 = result.n_gated if mode == "meta" else 0
+    if launches["online_adapt_viterbinet"] != want_k6 or (mode == "meta" and want_k6 == 0):
+        fail(f"{name} {mode}: K6 launched {launches['online_adapt_viterbinet']} times for "
+             f"{result.n_gated} gated blocks")
+    if launches["fused_viterbinet_detect"] or launches["fused_va_detect"]:
+        fail(f"{name} {mode}: the by-word path launched a batch detect kernel: {launches}")
+    if train_launches["fused_viterbinet_detect"] != cfg.train_minibatch_num:
+        fail(f"{name} {mode}: train-on-miss evaluated through K1 "
+             f"{train_launches['fused_viterbinet_detect']} times, not once per minibatch")
+    return {"cfg": cfg, "trainer": trainer, "sers": sers, "mean_data_ber": mean_ber,
+            "train_s": train_s, "blocks_s": blocks_s, "parts": parts, "launches": launches,
+            "train_launches": train_launches, "n_buffer": result.n_buffer,
+            "n_gated": result.n_gated}
+
+
+def phase_online() -> dict:
+    out = {}
+    with tempfile.TemporaryDirectory() as weights_dir:
+        meta = run_by_word("meta_vnet", "meta", f"{weights_dir}/meta_vnet", META_VNET_BAND)
+        joint = run_by_word("vnet", "joint", f"{weights_dir}/vnet", VNET_JOINT_BAND)
+
+        # the device's idle share over 300 blocks: a second by-word run of
+        # each under the profiler (a fresh trainer on the same checkpoint,
+        # so the first val batch of its stream)
+        for name, run in (("meta_vnet", meta), ("vnet", joint)):
+            again = Trainer(run["cfg"], name, verbose=False)
+            again.params = again.load_weights(10.0, run["cfg"].gamma)
+            run["busy"] = device_busy(lambda: again.eval_by_word(10.0, run["cfg"].gamma))
+            print(busy_line(f"{name} 300 by-word blocks (a second run)", run["busy"]))
+
+        # the first 25 meta-mode blocks on the card and through the CPU plain
+        # path, from the same params, blocks and draws
+        cfg = meta["cfg"]
+        card_t = Trainer(cfg, "meta_vnet", verbose=False)
+        params = card_t.load_weights(10.0, cfg.gamma)
+        tx, rx = card_t.val_dataset.get(10.0, cfg.gamma)
+        h = card_t.decoder_csi(tx.shape[0])
+        n = CARD_CPU_BLOCKS
+        sers = {}
+        for device, p in (("cuda", params), ("cpu", copy.deepcopy(params).cpu())):
+            draws = Draws(cfg, card_t.spec, torch.device(device),
+                          torch.Generator(device=device).manual_seed(SEED),
+                          torch.Generator().manual_seed(SEED))
+            t0 = time.perf_counter()
+            sers[device] = run_online(cfg, card_t.spec, p, tx[:n].to(device), rx[:n].to(device),
+                                      h[:n].to(device), draws).ser_by_word
+            print(f"meta_vnet first {n} blocks on {device}: {time.perf_counter() - t0:.2f} s")
+        di = np.arange(n)[np.arange(n) % cfg.subframes_in_frame != 0]
+        block_diff = float(np.abs(sers["cuda"] - sers["cpu"]).max())
+        mean_diff = abs(float(sers["cuda"][di].mean()) - float(sers["cpu"][di].mean()))
+        print(f"meta_vnet first {n} blocks, card against CPU: largest per-block SER difference "
+              f"{block_diff:.6f} (limit {CARD_CPU_BLOCK_TOL:.6f}), mean data SER difference "
+              f"{mean_diff:.6f} (limit {CARD_CPU_MEAN_TOL:g}); card {sers['cuda'].tolist()}, "
+              f"CPU {sers['cpu'].tolist()}")
+        if block_diff > CARD_CPU_BLOCK_TOL or mean_diff > CARD_CPU_MEAN_TOL:
+            fail("meta_vnet: the card and the CPU disagree on the first blocks")
+    for name, run in (("meta_vnet_meta", meta), ("vnet_joint", joint)):
+        out[name] = {k: v for k, v in run.items() if k not in ("cfg", "trainer", "sers")}
+    out["card_vs_cpu"] = {"blocks": n, "max_block_ser_diff": block_diff,
+                          "mean_data_ser_diff": mean_diff}
+    return out
+
+
 def phase_width(model: viterbinet.ViterbiNet, gen: torch.Generator, card: str) -> dict:
     times = {}
+
+    def record(name, W, kernel, plain, bound, wide=False, per_graph=20, plain_per_graph=2):
+        ms = graph_ms(kernel, per_graph=per_graph, replays=10 if per_graph > 2 else 3)
+        plain_ms = graph_ms(plain, per_graph=plain_per_graph, replays=5 if not wide else 3)
+        kernel_call = call_ms(kernel, reps=20 if per_graph > 2 else 5)
+        plain_call = call_ms(plain, reps=10 if wide else 5, warmup=1)
+        print(f"width {name} W={W}: kernel {ms:.5f} ms on the device, {kernel_call:.5f} ms per "
+              f"eager call; plain {plain_ms:.4f} ms on the device, {plain_call:.4f} ms per eager "
+              f"call; bound {bound[0]:.3e} ms ({bound[1]}) [{card}]")
+        times[(name, W)] = {"ms": ms, "plain_ms": plain_ms, "call_ms": kernel_call,
+                            "plain_call_ms": plain_call, "bound_ms": bound[0],
+                            "bound_by": bound[1]}
+
     for W in (PROTO_W, WIDE_W):
         y, mu = kernel_inputs(W, T_PROTO, gen)
         wide = W == WIDE_W
-        rows = {
-            "fused_va_detect": (lambda: acs.fused_va_detect(y, mu),
-                                lambda: acs.fused_va_detect_plain(y, mu),
-                                va_bound_ms(W, T_PROTO, 16)),
-            "fused_viterbinet_detect": (lambda: acs.fused_viterbinet_detect(model, y),
-                                        lambda: acs.fused_viterbinet_detect_plain(model, y),
-                                        vnet_bound_ms(W, T_PROTO, 16)),
-        }
-        for name, (kernel, plain, (bound, bound_by)) in rows.items():
-            ms = graph_ms(kernel)
-            plain_ms = graph_ms(plain, per_graph=2, replays=5)
-            kernel_call = call_ms(kernel)
-            plain_call = call_ms(plain, reps=10 if wide else 20, warmup=1)
-            rate = W * T_PROTO / (ms * 1e-3)
-            print(f"width {name} {W}x{T_PROTO}: kernel {ms:.5f} ms on the device "
-                  f"({rate:.4e} decoded symbols/s), {kernel_call:.5f} ms per eager call; "
-                  f"plain {plain_ms:.4f} ms on the device, {plain_call:.4f} ms per eager call; "
-                  f"bound {bound:.5f} ms ({bound_by}) [{card}]")
-            times[(name, W)] = {"ms": ms, "plain_ms": plain_ms, "call_ms": kernel_call,
-                                "plain_call_ms": plain_call, "bound_ms": bound,
-                                "bound_by": bound_by, "symbols_per_s": rate}
+        record("fused_va_detect", W, lambda: acs.fused_va_detect(y, mu),
+               lambda: acs.fused_va_detect_plain(y, mu), va_bound_ms(W, T_PROTO, 16), wide)
+        record("fused_viterbinet_detect", W, lambda: acs.fused_viterbinet_detect(model, y),
+               lambda: acs.fused_viterbinet_detect_plain(model, y),
+               vnet_bound_ms(W, T_PROTO, 16), wide)
+    for W in (1, PROTO_W):
+        priors = mlp_priors(model, kernel_inputs(W, T_PROTO, gen)[0])
+        record("viterbi_decode_kernel", W, lambda: acs.viterbi_decode_kernel(priors),
+               lambda: acs.viterbi_decode_kernel_plain(priors), decode_bound_ms(W, T_PROTO, 16))
+    params, y, states = adapt_inputs()
+    state = Optimizer("Adam", 1e-3).init(params)
+    bound = adapt_bound_ms(T_PROTO, 16, K6_ITERS)
+    record("online_adapt_viterbinet", 1,
+           lambda: online_sgd.online_adapt_viterbinet(params, state, y, states, K6_ITERS, 1e-3,
+                                                      ADAM_B1, ADAM_B2, ADAM_EPS),
+           lambda: online_sgd.online_adapt_viterbinet_plain(params, state, y, states, K6_ITERS,
+                                                            1e-3, ADAM_B1, ADAM_B2, ADAM_EPS),
+           bound, per_graph=2, plain_per_graph=1)
+    print(f"online_adapt_viterbinet: {adapt_ops(T_PROTO, 16, K6_ITERS):.4e} f32 operations for "
+          f"{K6_ITERS} steps at T={T_PROTO}; bound {bound[0]:.5f} ms at the card's f32 rate, "
+          f"{bound[0] * N_SMS:.4f} ms at one SM's share of it (one thread block)")
     return times
+
+
+REPLACES = {"fused_va_detect": "metaviterbinet_tpu/kernels/acs.py:409",
+            "fused_viterbinet_detect": "metaviterbinet_tpu/kernels/acs.py:262",
+            "viterbi_decode_kernel": "metaviterbinet_tpu/kernels/acs.py:451",
+            "online_adapt_viterbinet": "metaviterbinet_tpu/kernels/online_sgd.py:156"}
+SOURCES = {"fused_va_detect": "metaviterbinet_tpu_torch/kernels/csrc/va_detect.cu",
+           "fused_viterbinet_detect": "metaviterbinet_tpu_torch/kernels/csrc/viterbinet_detect.cu",
+           "viterbi_decode_kernel": "metaviterbinet_tpu_torch/kernels/csrc/viterbi_decode.cu",
+           "online_adapt_viterbinet": "metaviterbinet_tpu_torch/kernels/csrc/online_adapt.cu"}
+
+
+def kernel_rows(checks: dict, sl: dict, online: dict, times: dict) -> list:
+    rows = []
+    meta_launches = online["meta_vnet_meta"]["launches"]
+    for name in ("fused_viterbinet_detect", "fused_va_detect"):
+        main_row, wide_row = times[(name, PROTO_W)], times[(name, WIDE_W)]
+        main_check = checks[(name, PROTO_W, T_PROTO)]
+        rows.append({
+            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": sl["launches"][name], "max_abs_err": main_check["max_abs_err"],
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+            "library_ms": None, "shape": [PROTO_W, T_PROTO],
+            "bit_mismatch_rate": main_check["bit_mismatch_rate"],
+            "call_ms": main_row["call_ms"], "plain_call_ms": main_row["plain_call_ms"],
+            "ms_65536": wide_row["ms"], "plain_ms_65536": wide_row["plain_ms"],
+            "call_ms_65536": wide_row["call_ms"], "plain_call_ms_65536": wide_row["plain_call_ms"],
+            "bound_ms_65536": wide_row["bound_ms"], "bound_by_65536": wide_row["bound_by"],
+            "checked": [{"shape": [W, T], **checks[(name, W, T)]} for W, T in KERNEL_CHECK_SHAPES],
+        })
+    name = "viterbi_decode_kernel"
+    row, wide = times[(name, 1)], times[(name, PROTO_W)]
+    rows.append({
+        "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+        "launches": meta_launches[name], "max_abs_err": checks[(name, 1, T_PROTO)]["max_abs_err"],
+        "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": None, "shape": [1, T_PROTO, 16],
+        "call_ms": row["call_ms"], "plain_call_ms": row["plain_call_ms"],
+        "ms_300": wide["ms"], "plain_ms_300": wide["plain_ms"], "call_ms_300": wide["call_ms"],
+        "plain_call_ms_300": wide["plain_call_ms"], "bound_ms_300": wide["bound_ms"],
+        "bound_by_300": wide["bound_by"],
+        "launches_vnet_joint": online["vnet_joint"]["launches"][name],
+        "checked": [{"shape": [W, T, 16], **checks[(name, W, T)]} for W, T in DECODE_CHECK_SHAPES],
+    })
+    name = "online_adapt_viterbinet"
+    row = times[(name, 1)]
+    rows.append({
+        "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+        "launches": meta_launches[name], "max_abs_err": checks[(name, 1, T_PROTO)]["max_abs_err"],
+        "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": None, "shape": [T_PROTO, K6_ITERS],
+        "call_ms": row["call_ms"], "plain_call_ms": row["plain_call_ms"],
+        "one_sm_bound_ms": row["bound_ms"] * N_SMS,
+        "checked": checks[(name, 1, T_PROTO)]["by_check"],
+        "drift": checks[(name, 1, T_PROTO)]["drift"],
+    })
+    return rows
 
 
 def main() -> int:
@@ -338,33 +721,13 @@ def main() -> int:
     model = viterbinet.init_params(16, gen, device="cuda")
     checks = phase_kernels(model, gen)
     sl = phase_slice(model)
+    online = phase_online()
     times = phase_width(model, gen, card)
 
-    replaces = {"fused_va_detect": "metaviterbinet_tpu/kernels/acs.py:409",
-                "fused_viterbinet_detect": "metaviterbinet_tpu/kernels/acs.py:262"}
-    sources = {"fused_va_detect": "metaviterbinet_tpu_torch/kernels/csrc/va_detect.cu",
-               "fused_viterbinet_detect": "metaviterbinet_tpu_torch/kernels/csrc/viterbinet_detect.cu"}
-    kernels = []
-    for name in ("fused_viterbinet_detect", "fused_va_detect"):
-        main_row, wide_row = times[(name, PROTO_W)], times[(name, WIDE_W)]
-        main_check = checks[(name, PROTO_W, T_PROTO)]
-        kernels.append({
-            "name": name, "route": "cuda", "source": sources[name], "replaces": replaces[name],
-            "launches": sl["launches"][name], "max_abs_err": main_check["max_abs_err"],
-            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-            "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-            "library_ms": None, "shape": [PROTO_W, T_PROTO],
-            "bit_mismatch_rate": main_check["bit_mismatch_rate"],
-            "call_ms": main_row["call_ms"], "plain_call_ms": main_row["plain_call_ms"],
-            "ms_65536": wide_row["ms"], "plain_ms_65536": wide_row["plain_ms"],
-            "call_ms_65536": wide_row["call_ms"], "plain_call_ms_65536": wide_row["plain_call_ms"],
-            "bound_ms_65536": wide_row["bound_ms"], "bound_by_65536": wide_row["bound_by"],
-            "checked": [{"shape": [W, T], **checks[(name, W, T)]} for W, T in KERNEL_CHECK_SHAPES],
-        })
-    print(json.dumps({"kernels": kernels, "card": card,
+    print(json.dumps({"kernels": kernel_rows(checks, sl, online, times), "card": card,
                       "eval_s_per_1000_words": {"va": sl["va_s_per_1k"], "vnet": sl["vnet_s_per_1k"]},
                       "point_under_profiler_10db": sl["busy"],
-                      "va_coded_ber_7_to_12db": sl["va_ber"]}))
+                      "va_coded_ber_7_to_12db": sl["va_ber"], "by_word_10db": online}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

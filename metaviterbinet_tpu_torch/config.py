@@ -21,9 +21,6 @@ import numpy as np
 _NOT_PORTED = {
     "mesh_shape": None,
     "eval_time_chunks": 0,
-    "eval_mode": "aggregated",
-    "self_supervised": False,
-    "online_meta": False,
     "dtype": "float32",
 }
 
@@ -54,7 +51,7 @@ class Config:
     val_SNR_start: float = 10.0
     val_SNR_end: float = 10.0
     val_SNR_step: float = 1.0
-    eval_mode: str = "aggregated"  # 'aggregated'; 'by_word' is not ported yet
+    eval_mode: str = "aggregated"  # 'aggregated' | 'by_word' (online protocol)
 
     # training (reference config.yaml:29-39)
     train_block_length: int = 120
@@ -74,12 +71,12 @@ class Config:
     word_seed: int = 7860002
 
     # self-supervised online training (reference config.yaml:44-47)
-    self_supervised: bool = False  # not ported yet
+    self_supervised: bool = False
     self_supervised_iterations: int = 200
     ser_thresh: float = 0.02
 
     # meta-learning (reference config.yaml:50-57)
-    online_meta: bool = False  # not ported yet
+    online_meta: bool = False
     meta_lr: float = 0.1
     MAML: bool = True
     weights_init: str = "last_frame"  # 'random' | 'last_frame' | 'meta_training'

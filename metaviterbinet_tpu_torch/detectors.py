@@ -1,15 +1,23 @@
 """Detector registry: one functional API over the ported detector families.
 
 A detector is a `DetectorSpec` binding
-    init(cfg, generator, device) -> params (None for the parameterless VA)
-    score(params, y)             -> per-symbol metrics [words, T, n_classes]
-    detect(params, y, h)         -> hard bits [words, T]
+    init(cfg, generator, device)  -> params (a ViterbiNet; None for the VA)
+    score(param_dict, y)          -> per-symbol logits [words, T, n_classes]
+    detect(params, y, h)          -> hard bits [words, T], batch detection
+    engine_detect(params, y, h)   -> hard bits [1, T], the online engine's
 (the counterpart of metaviterbinet_tpu/detectors.py). Batch detection always
 goes through the fused kernels of kernels/acs.py, as the JAX package's
 `with_pallas_detect` does when it is asked to: on CUDA tensors the
 hand-written kernel runs, on CPU tensors its plain PyTorch version. The
 kernels take any number of words (the TPU kernels' padding of the words axis
 to 128 lanes has no counterpart here).
+
+The online engine detects one block at a time as the JAX engine does
+(evaluation/trainer.py:81-83 there keeps it off the fused kernels): the VA
+through K2 at one word, which is bit-identical to the JAX `va.detect`; the
+ViterbiNet family through its f32 MLP (torch.matmul with TF32 off, see
+device.py::use_f32_matmuls) and then K5, the decode over those priors, and
+never through K1, which rounds to bf16 like the TPU kernel.
 """
 from __future__ import annotations
 
@@ -18,7 +26,8 @@ from typing import Callable, Optional
 
 import torch
 
-from metaviterbinet_tpu_torch.kernels.acs import fused_va_detect, fused_viterbinet_detect
+from metaviterbinet_tpu_torch.kernels.acs import (
+    fused_va_detect, fused_viterbinet_detect, viterbi_decode_kernel)
 from metaviterbinet_tpu_torch.models import va, viterbinet
 
 
@@ -26,9 +35,13 @@ from metaviterbinet_tpu_torch.models import va, viterbinet
 class DetectorSpec:
     name: str
     trainable: bool
+    label_kind: Optional[str]      # 'states' | None
+    subsample_loss: bool           # reference select_batch subsampling in loss
+    meta: bool                     # offline training is MAML meta-training
     init: Optional[Callable]       # (cfg, generator, device) -> params
-    score: Optional[Callable]      # (params, y) -> [W, T, n_classes]
+    score: Optional[Callable]      # (param_dict, y) -> [W, T, n_classes]
     detect: Callable               # (params, y, h) -> [W, T] bits
+    engine_detect: Callable        # (params, y, h) -> [1, T] bits
 
 
 def _va_detect(params, y: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
@@ -39,16 +52,33 @@ def _vnet_detect(params, y: torch.Tensor, h) -> torch.Tensor:
     return fused_viterbinet_detect(params, y.contiguous())
 
 
+@torch.no_grad()
+def _vnet_engine_detect(params, y: torch.Tensor, h) -> torch.Tensor:
+    """ACS over the negated f32 logits (logits are max-good, ACS is min-sum;
+    reference vnet_detector.py:51-61)."""
+    return viterbi_decode_kernel(-viterbinet.score(params, y))
+
+
+def _vnet_init(cfg, generator, device):
+    return viterbinet.init_params(cfg.n_states, generator, device)
+
+
 # Classical Viterbi: parameterless, full CSI via explicit taps h
 # (reference detectors/VA/va_detector.py:13-100)
-VA = DetectorSpec(name="va", trainable=False, init=None, score=None, detect=_va_detect)
+VA = DetectorSpec(name="va", trainable=False, label_kind=None, subsample_loss=False,
+                  meta=False, init=None, score=None, detect=_va_detect,
+                  engine_detect=_va_detect)
 
 # ViterbiNet: DNN branch metrics + ACS (reference detectors/VNET/vnet_detector.py)
-VNET = DetectorSpec(
-    name="vnet", trainable=True,
-    init=lambda cfg, generator, device: viterbinet.init_params(cfg.n_states, generator, device),
-    score=viterbinet.score,
-    detect=_vnet_detect,
-)
+VNET = DetectorSpec(name="vnet", trainable=True, label_kind="states", subsample_loss=True,
+                    meta=False, init=_vnet_init, score=viterbinet.logits,
+                    detect=_vnet_detect, engine_detect=_vnet_engine_detect)
 
-DETECTORS = {d.name: d for d in (VA, VNET)}
+# Meta-ViterbiNet: the same network, MAML offline training and online
+# meta-adaptation (reference trainers/META_VNET/metavnet_trainer.py)
+META_VNET = DetectorSpec(name="meta_vnet", trainable=True, label_kind="states",
+                         subsample_loss=False, meta=True, init=_vnet_init,
+                         score=viterbinet.logits, detect=_vnet_detect,
+                         engine_detect=_vnet_engine_detect)
+
+DETECTORS = {d.name: d for d in (VA, VNET, META_VNET)}

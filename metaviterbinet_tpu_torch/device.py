@@ -16,3 +16,12 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
     return device
+
+
+def use_f32_matmuls() -> None:
+    """Keep float32 products in full float32 on the card, with no TF32: the
+    JAX package detects and trains ViterbiNet in float32 (HIGHEST precision
+    in its kernels), and the port holds its results to that. This sets the
+    process-wide PyTorch flags; False is also their default."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

@@ -1,14 +1,17 @@
-"""Fused branch-metric + add-compare-select detect kernels for Hopper.
+"""Add-compare-select kernels for Hopper, and the build of every kernel.
 
-Two hand-written CUDA kernels, one per source in csrc/:
+Three hand-written CUDA kernels, one per source in csrc/:
   - `fused_va_detect` (csrc/va_detect.cu) replaces the Pallas kernel
     metaviterbinet_tpu/kernels/acs.py::fused_va_detect;
   - `fused_viterbinet_detect` (csrc/viterbinet_detect.cu) replaces
-    metaviterbinet_tpu/kernels/acs.py::fused_viterbinet_detect.
+    metaviterbinet_tpu/kernels/acs.py::fused_viterbinet_detect;
+  - `viterbi_decode_kernel` (csrc/viterbi_decode.cu) replaces
+    metaviterbinet_tpu/kernels/acs.py::pallas_viterbi_decode.
 
-Each source is compiled by nvcc for sm_90a into a shared library with a plain
-C interface, at the first CUDA call (or all together by `build_kernels`),
-into kernels/_build/, and loaded with ctypes. A wrapper launches its kernel
+Each source in csrc/ (these three and kernels/online_sgd.py's) is compiled by
+nvcc for sm_90a into a shared library with a plain C interface, at the first
+CUDA call (or all together by `build_kernels`), into kernels/_build/, and
+loaded with ctypes. A wrapper launches its kernel
 on the current stream for CUDA tensors and counts the launch in its
 `launches` attribute; for CPU tensors it runs the kernel's plain PyTorch
 version, which the tests and chip_smoke.py also hold the kernel against.
@@ -39,11 +42,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SUPPORTED_STATES = (2, 4, 8, 16)
 
-_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_PTR, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # library name -> argument types of its one C function of the same name
 _SIGNATURES = {
     "va_detect": (_PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR),
     "viterbinet_detect": (_PTR,) * 8 + (_INT, _INT, _INT, _PTR),
+    "viterbi_decode": (_PTR, _PTR, _INT, _INT, _INT, _PTR),
+    "online_adapt": (_PTR,) * 20 + (_INT,) * 3 + (_F32,) * 9 + (_PTR,),
 }
 _loaded: dict[str, ctypes.CDLL] = {}
 # library name -> nvcc's report (registers, spills) of its last build here
@@ -166,6 +171,42 @@ def fused_va_detect(y: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
 
 
 fused_va_detect.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K5: ACS over precomputed priors
+# --------------------------------------------------------------------------
+
+def viterbi_decode_kernel_plain(priors: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the decode kernel: ops/trellis.py::viterbi_decode."""
+    return viterbi_decode(priors)
+
+
+def viterbi_decode_kernel(priors: torch.Tensor) -> torch.Tensor:
+    """Greedy zero-delay Viterbi decode of branch metrics priors [W, T, S]
+    f32 (any W); returns [W, T] f32 bits, bit-identical to
+    `viterbi_decode_kernel_plain`."""
+    _check_f32("viterbi_decode_kernel", priors, 3, priors.device)
+    W, T, S = priors.shape
+    if S not in SUPPORTED_STATES:
+        raise ValueError(f"viterbi_decode_kernel: S={S} must be one of {SUPPORTED_STATES}")
+    if not _route("viterbi_decode_kernel", priors):
+        return viterbi_decode_kernel_plain(priors)
+    if priors.data_ptr() % (4 * min(S, 4)):
+        raise ValueError("viterbi_decode_kernel: priors must be aligned for vector loads")
+    out = priors.new_empty((W, T))
+    if out.numel() == 0:
+        return out
+    lib = _library("viterbi_decode")
+    with torch.cuda.device(priors.device):
+        rc = lib.viterbi_decode(priors.data_ptr(), out.data_ptr(), W, T, S,
+                                torch.cuda.current_stream(priors.device).cuda_stream)
+    _check_launch("viterbi_decode_kernel", rc)
+    viterbi_decode_kernel.launches += 1
+    return out
+
+
+viterbi_decode_kernel.launches = 0
 
 
 # --------------------------------------------------------------------------

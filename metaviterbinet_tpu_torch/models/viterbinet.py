@@ -3,6 +3,11 @@
 Architecture parity with reference detectors/VNET/vnet_detector.py:27-33:
 1 -> 100 sigmoid -> 50 relu -> n_states. Weights are kept in the [out, in]
 layout of both the reference and the JAX package (nn.Linear's own layout).
+
+The module holds the parameters; `param_dict` names them as the JAX package
+does (w1 [100, 1], b1, w2 [50, 100], b2, w3 [S, 50], b3), and `logits` is the
+forward as a function of such a dict, so that training can update the
+parameters in place and MAML can differentiate through an updated copy.
 """
 from __future__ import annotations
 
@@ -10,10 +15,10 @@ import torch
 from torch import nn
 
 from metaviterbinet_tpu_torch.device import resolve_device
-from metaviterbinet_tpu_torch.ops.trellis import viterbi_decode
 
 HIDDEN1 = 100
 HIDDEN2 = 50
+PARAM_NAMES = ("w1", "b1", "w2", "b2", "w3", "b3")
 
 
 class ViterbiNet(nn.Module):
@@ -30,10 +35,23 @@ class ViterbiNet(nn.Module):
 
     def forward(self, y: torch.Tensor) -> torch.Tensor:
         """Per-symbol state logits: y [words, T] -> [words, T, n_states] f32."""
-        x = y.reshape(-1, 1)
-        x = torch.sigmoid(self.fc1(x))
-        x = torch.relu(self.fc2(x))
-        return self.fc3(x).reshape(y.shape[0], y.shape[1], -1)
+        return logits(param_dict(self), y)
+
+
+def param_dict(model: ViterbiNet) -> dict[str, torch.Tensor]:
+    """The model's own parameter tensors under the JAX package's names."""
+    return {"w1": model.fc1.weight, "b1": model.fc1.bias, "w2": model.fc2.weight,
+            "b2": model.fc2.bias, "w3": model.fc3.weight, "b3": model.fc3.bias}
+
+
+def logits(params: dict[str, torch.Tensor], y: torch.Tensor) -> torch.Tensor:
+    """The forward over a parameter dict: y [words, T] -> [words, T, S], each
+    product followed by its bias add, as models/viterbinet.py::score of the
+    JAX package computes it."""
+    x = y.reshape(-1, 1)
+    x = torch.sigmoid(x @ params["w1"].T + params["b1"])
+    x = torch.relu(x @ params["w2"].T + params["b2"])
+    return (x @ params["w3"].T + params["b3"]).reshape(y.shape[0], y.shape[1], -1)
 
 
 def init_params(n_states: int, generator: torch.Generator,
@@ -50,12 +68,19 @@ def init_params(n_states: int, generator: torch.Generator,
     return model
 
 
+def from_params(params: dict, device: str | torch.device = "cuda") -> ViterbiNet:
+    """A ViterbiNet holding a copy of `params` (tensors or arrays under the
+    JAX package's names, in its layout)."""
+    model = ViterbiNet(int(params["w3"].shape[0]), device=device)
+    with torch.no_grad():
+        for k, p in param_dict(model).items():
+            src = torch.as_tensor(params[k], dtype=torch.float32)
+            if src.shape != p.shape:
+                raise ValueError(f"{k}: shape {tuple(src.shape)}, expected {tuple(p.shape)}")
+            p.copy_(src)
+    return model
+
+
 def score(model: ViterbiNet, y: torch.Tensor) -> torch.Tensor:
     return model(y)
 
-
-@torch.no_grad()
-def detect(model: ViterbiNet, y: torch.Tensor) -> torch.Tensor:
-    """Hard decode: ACS over negated logits (logits are max-good, ACS is
-    min-sum; reference vnet_detector.py:51-61). ACS always runs float32."""
-    return viterbi_decode(-score(model, y)).to(y.dtype)

@@ -8,8 +8,10 @@ JAX, so it also runs on a machine without it:
 import pytest
 import torch
 
-from metaviterbinet_tpu_torch.kernels import acs
+from metaviterbinet_tpu_torch.kernels import acs, online_sgd
 from metaviterbinet_tpu_torch.models import va, viterbinet
+from metaviterbinet_tpu_torch.ops.trellis import calculate_states
+from metaviterbinet_tpu_torch.train.optim import Optimizer
 
 pytestmark = pytest.mark.cuda
 
@@ -54,3 +56,46 @@ def test_kernels_break_exact_ties_toward_state_zero(gen):
     y = torch.zeros((64, 20), device="cuda")
     assert not acs.fused_viterbinet_detect(model, y).any()
     assert not acs.fused_va_detect(y, torch.zeros((64, 16), device="cuda")).any()
+
+
+@pytest.mark.parametrize("S", [2, 4, 8, 16])
+@pytest.mark.parametrize("W,T", [(1, 136), (300, 136), (4096, 41), (33, 7)])
+def test_decode_kernel_bit_identical_to_plain(gen, S, W, T):
+    priors = torch.randn((W, T, S), generator=gen, device="cuda")
+    before = acs.viterbi_decode_kernel.launches
+    got = acs.viterbi_decode_kernel(priors)
+    assert acs.viterbi_decode_kernel.launches == before + 1
+    assert torch.equal(got, acs.viterbi_decode_kernel_plain(priors))
+
+
+def test_decode_kernel_breaks_exact_ties_toward_state_zero(gen):
+    """Equal priors keep every state tied at 0.0: every bit is state 0's
+    LSB; and a tie set {1, 2, 9, 10} after step 0 reads state 1's."""
+    assert not acs.viterbi_decode_kernel(torch.zeros((64, 20, 16), device="cuda")).any()
+    p0 = torch.ones(16, device="cuda")
+    p0[[2, 4]] = 0.0
+    priors = torch.stack([p0, torch.ones(16, device="cuda")])[None].repeat(4, 1, 1).contiguous()
+    got = acs.viterbi_decode_kernel(priors)
+    assert torch.equal(got, acs.viterbi_decode_kernel_plain(priors))
+    assert bool((got[:, 1] == 1.0).all())
+
+
+@pytest.mark.parametrize("T", [136, 41])
+def test_online_adapt_kernel_matches_plain(gen, T):
+    """40 fused Adam steps from the same params and zero moments: within
+    5e-6 of the plain version (the JAX kernel's contract)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = viterbinet.init_params(16, gen, device="cuda")
+    y = torch.randn(T, generator=gen, device="cuda")
+    states = calculate_states(4, torch.randint(0, 2, (1, T), generator=gen, device="cuda").float())
+    a = {k: v.detach().clone() for k, v in viterbinet.param_dict(model).items()}
+    b = {k: v.detach().clone() for k, v in a.items()}
+    opt = Optimizer("Adam", 1e-3)
+    sa, sb = opt.init(a), opt.init(b)
+    before = online_sgd.online_adapt_viterbinet.launches
+    online_sgd.online_adapt_viterbinet(a, sa, y, states, 40, 1e-3)
+    assert online_sgd.online_adapt_viterbinet.launches == before + 1
+    online_sgd.online_adapt_viterbinet_plain(b, sb, y, states, 40, 1e-3)
+    assert sa.count == sb.count == 40
+    for k in a:
+        assert float((a[k] - b[k]).abs().max()) <= 5e-6, k

@@ -52,11 +52,16 @@ def test_config_yaml_layering():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("mesh_shape", (8,)), ("eval_time_chunks", 4), ("eval_mode", "by_word"),
-    ("self_supervised", True), ("online_meta", True), ("dtype", "bfloat16")])
+    ("mesh_shape", (8,)), ("eval_time_chunks", 4), ("dtype", "bfloat16")])
 def test_config_unported_mechanisms_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
         tconfig.Config(**{field: value})
+
+
+@pytest.mark.parametrize("field,value", [
+    ("eval_mode", "by_word"), ("self_supervised", True), ("online_meta", True)])
+def test_config_accepts_the_online_mechanisms(field, value):
+    assert getattr(tconfig.Config(**{field: value}), field) == value
 
 
 # ------------------------------------------------------------------ modulation + metrics

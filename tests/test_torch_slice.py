@@ -23,7 +23,7 @@ from metaviterbinet_tpu_torch.data import dataset as tdataset
 from metaviterbinet_tpu_torch.evaluation.trainer import Trainer
 from metaviterbinet_tpu_torch.models import viterbinet as tvnet
 from metaviterbinet_tpu_torch.paths import RESOURCES_DIR, ROOT_DIR
-from metaviterbinet_tpu_torch.weights import params_from_jax
+from metaviterbinet_tpu_torch.weights import adam_state_from_jax, params_from_jax
 
 PROTOCOL = dict(n_words=300, block_length=120, memory_length=4, use_ecc=True, n_symbols=2,
                 channel_coefficients="time_decay", fading=True, fading_taps_type=1)
@@ -147,10 +147,19 @@ def test_evaluate_aggregated_sweep_on_cpu():
     assert sers.shape == (3,) and np.all((sers >= 0) & (sers <= 1))
 
 
-def test_trainable_detector_needs_params_from_its_caller():
-    cfg = Config(val_frames=1)
-    with pytest.raises(NotImplementedError, match="params"):
-        Trainer(cfg, "vnet", device="cpu", verbose=False).evaluate()
+def test_trainable_detector_needs_params_from_its_caller(tmp_path):
+    """A trainable detector evaluates the params its caller passes; without
+    them, its checkpoint, trained on a miss."""
+    cfg = Config(val_frames=1, train_frames=1, train_minibatch_num=1, train_block_length=24,
+                 train_minibatch_size=8)
+    t = Trainer(cfg, "vnet", device="cpu", weights_dir=str(tmp_path), verbose=False)
+    sers = t.evaluate()
+    assert sers.shape == (1,) and (tmp_path / "snr_10.0_gamma_0.2.pt").is_file()
+    model = tvnet.init_params(16, torch.Generator().manual_seed(0), device="cpu")
+    fixed = Trainer(cfg, "vnet", device="cpu", params=model, weights_dir=str(tmp_path / "x"),
+                    verbose=False)
+    fixed.evaluate()
+    assert fixed.params is model and not (tmp_path / "x").exists()
     with pytest.raises(NotImplementedError, match="lstm"):
         Trainer(cfg, "lstm", device="cpu")
 
@@ -172,12 +181,18 @@ def test_entry_points_default_to_the_card():
     np_params = {k: np.asarray(v) for k, v in jvnet.init_params(jax.random.PRNGKey(0), 16).items()}
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         params_from_jax(np_params)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tvnet.from_params(np_params)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        adam_state_from_jax(np_params, np_params, 0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(cfg.replace(eval_mode="by_word"), "meta_vnet")
 
 
 def test_port_imports_nothing_of_jax():
     code = (
         "import importlib, pkgutil, sys\n"
-        "for name in ('jax', 'flax', 'optax', 'metaviterbinet_tpu'):\n"
+        "for name in ('jax', 'flax', 'optax', 'yaml', 'metaviterbinet_tpu'):\n"
         "    sys.modules[name] = None\n"
         "import metaviterbinet_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
@@ -189,4 +204,4 @@ def test_port_imports_nothing_of_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT_DIR, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 15
+    assert int(proc.stdout.split()[-1]) >= 24
