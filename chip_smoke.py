@@ -4,24 +4,34 @@
 
 Phases, each of which fails the run on error:
   1. card     print the card's name and power limit (nvidia-smi);
-  2. build    compile the four CUDA kernels from
+  2. build    compile the five CUDA kernels from
               metaviterbinet_tpu_torch/kernels/csrc (one nvcc per source,
               started together);
   3. kernels  hold each kernel against its plain PyTorch version on the card:
               K1 (ViterbiNet detect, < 1e-3 bit mismatch) and K2 (VA detect,
               bit-identical) at 4096 and 1000 words x 136 and 41 steps and at
-              the aggregated path's 300 x 136; K5 (ACS over priors from the
-              f32 MLP, bit-identical) at the engine's 1 x 136, 300 x 136 and
-              4096 x 41; K6 (fused online Adam) at T = 136 from the same
-              params and moments: 40 steps, a resumed second call of 40, and
-              the protocol's 200 steps on nine received words;
+              the aggregated path's 300 x 136; K4 (K1 over overlap-save time
+              chunks, overlap 32, < 1e-3) at 300 x 136 with 2 and 4 chunks,
+              4096 x 136 with 4 and 1000 x 136 with 2, and bit-identical to
+              K1 (trained params) on channel words at 300 x 136 with 2 and 4
+              chunks; K5 (ACS over priors from the f32 MLP, bit-identical)
+              at the engine's 1 x 136, 300 x 136 and 4096 x 41; K6 (fused
+              online Adam) at T = 136 from the same params and moments: 40
+              steps, a resumed second call of 40, and the protocol's 200
+              steps on nine received words;
   4. slice    the aggregated coded-BER eval at the protocol's full width
               (300 words x 136 symbols, RS nsym=2, 4-tap time-decay fading
-              channel): VA over 7..12 dB through Trainer.evaluate, and a
-              ViterbiNet with seeded random params at 10 dB; the launch counts
-              are zeroed just before and read just after; then one VA and
-              one ViterbiNet point under torch.profiler for the device's
-              busy time;
+              channel), each path's launch counts zeroed just before and read
+              just after it: VA over 7..12 dB through Trainer.evaluate (the
+              fused sweep, bit-equal to a per-SNR loop from the same seeds),
+              a ViterbiNet with seeded random params at 10 dB, and one
+              trained for one minibatch at 10 dB with eval_time_chunks=4
+              (K4) and 0 (K1), with the same coded BER; then
+              eval_time_chunks=8 (chunks shorter than the overlap: K1) and
+              an overlap below 8 * memory_length (the warning: K1); one VA
+              and one ViterbiNet point under torch.profiler for the device's
+              busy time; and two anchors of the reference: uncoded VA at
+              10 dB and VA on the COST2100 channel at 8 dB;
   5. online   the paper's by-word protocol through Trainer.evaluate: 300
               blocks on the type-2 test channel at 10 dB, in a temporary
               weights directory so that the checkpoint is trained on the
@@ -33,35 +43,51 @@ Phases, each of which fails the run on error:
               events), and the device's idle share over 300 blocks
               (torch.profiler, a second run); then the first 25
               meta-mode blocks once on the card and once on the CPU;
-  6. width    time the kernels and their plain versions on the device (a CUDA
+  6. cli      in the vnet weights directory of phase 5: `evaluate` of the
+              trained checkpoint, aggregated through K4 (no training), in
+              process, against the vnet joint band and against the same
+              command unchunked; and `python -m metaviterbinet_tpu_torch
+              evaluate --detector va` in a subprocess, against the same eval
+              in process;
+  7. bf16     Config.dtype='bfloat16': the bf16 logits and the engine detect
+              on the card against the CPU, one bf16 word sweep, and no K6;
+  8. width    time the kernels and their plain versions on the device (a CUDA
               graph of back-to-back calls) and per eager call: K1 and K2 at
-              300 x 136 and 65536 x 136, K5 at 1 x 136 and 300 x 136, K6 at
+              300 x 136 and 65536 x 136, K4 at 300 x 136 with 2 and 4 chunks
+              and 65536 x 136 with 4, K5 at 1 x 136 and 300 x 136, K6 at
               T = 136 with 200 steps;
-  7. report   a `{"kernels": [...]}` line, then the card line, then
+  9. report   a `{"kernels": [...]}` line, then the card line, then
               `{"ok": true, "device": {...}}` as the last line.
 
 Exits non-zero, printing no result, when no CUDA device is present.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
+import io
 import json
+import os
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
 
-from metaviterbinet_tpu_torch import Config
-from metaviterbinet_tpu_torch.data.dataset import ChannelDataset
+from metaviterbinet_tpu_torch import Config, cli
+from metaviterbinet_tpu_torch.data.dataset import ChannelDataset, generate_words
 from metaviterbinet_tpu_torch.ecc.rs import rs_encode_bits
 from metaviterbinet_tpu_torch.evaluation.trainer import Trainer
 from metaviterbinet_tpu_torch.kernels import acs, online_sgd
 from metaviterbinet_tpu_torch.models import va, viterbinet
-from metaviterbinet_tpu_torch.online.engine import Draws, run_online
+from metaviterbinet_tpu_torch.online.engine import Draws, run_online, uses_fused_adaptation
 from metaviterbinet_tpu_torch.ops.trellis import calculate_states
+from metaviterbinet_tpu_torch.paths import RESOURCES_DIR, ROOT_DIR
+from metaviterbinet_tpu_torch.train.losses import select_batch
+from metaviterbinet_tpu_torch.train.loop import word_sweep
 from metaviterbinet_tpu_torch.train.optim import ADAM_B1, ADAM_B2, ADAM_EPS, Optimizer
 
 SEED = 20260
@@ -86,8 +112,15 @@ CARD_CPU_BLOCKS = 25
 # card against CPU over the first 25 meta-mode blocks: each block's SER
 # within two of its 120 bits, the mean over the data blocks within 2e-3
 CARD_CPU_BLOCK_TOL, CARD_CPU_MEAN_TOL = 2.0 / 120, 2e-3
-KERNELS = ("fused_viterbinet_detect", "fused_va_detect", "viterbi_decode_kernel",
-           "online_adapt_viterbinet")
+KERNELS = ("fused_viterbinet_detect", "fused_va_detect", "fused_viterbinet_detect_chunked",
+           "viterbi_decode_kernel", "online_adapt_viterbinet")
+OVERLAP = 32  # Config.decode_overlap
+# the anchors' bands (tests/test_parity_anchor.py:22-30, :65-84)
+UNCODED_VA_TOL, COST2100_VA_TOL = 0.006, 0.005
+# bf16 logits on the card against the CPU: within 0.03 of max(1, |logit|),
+# about four bf16 ulps at the largest logit (cuBLAS and the CPU may round
+# a bf16 product apart, and an h2 that differs by one ulp moves the logits)
+BF16_LOGIT_TOL = 0.03
 
 
 def fail(msg: str) -> None:
@@ -233,19 +266,34 @@ def va_bound_ms(W: int, T: int, S: int) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def vnet_bound_ms(W: int, T: int, S: int) -> tuple[float, str]:
+def vnet_bound_ms(W: int, T: int, S: int, n_computed: int | None = None) -> tuple[float, str]:
     """Least time for fused_viterbinet_detect: y in and bits out once (plus
     the weights), against the two products with bf16 operands at the bf16
     tensor-core rate plus the f32 elementwise work per symbol: w1*y+b1 (200),
     sigmoid as neg, exp, add, divide (400), b2 and relu (100), b3 (S), and
-    the 3.5 S ACS ops."""
+    the 3.5 S ACS ops. `n_computed` symbols go through the MLP and the ACS
+    (W * T unless given)."""
     n = W * T
+    m = n if n_computed is None else n_computed
     weight_bytes = 4 * (3 * viterbinet.HIDDEN1 + viterbinet.HIDDEN2 * (viterbinet.HIDDEN1 + 1 + S) + S)
     t_bytes = (4.0 * 2 * n + weight_bytes) / HBM_BYTES_PER_S
-    mm_flops = 2.0 * n * (viterbinet.HIDDEN1 * viterbinet.HIDDEN2 + viterbinet.HIDDEN2 * S)
-    elem_ops = n * (200 + 400 + 100 + S + 3.5 * S)
+    mm_flops = 2.0 * m * (viterbinet.HIDDEN1 * viterbinet.HIDDEN2 + viterbinet.HIDDEN2 * S)
+    elem_ops = m * (200 + 400 + 100 + S + 3.5 * S)
     t_ops = mm_flops / BF16_TC_FLOP_PER_S + elem_ops / F32_FLOP_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def chunked_symbols(W: int, T: int, C: int) -> int:
+    """Symbols K4 runs through the MLP and the ACS: each chunk but the
+    stream-head one also warms up on OVERLAP symbols (the head chunk skips
+    its warm-up, see csrc/viterbinet_detect_chunked.cu)."""
+    return W * (T + (C - 1) * OVERLAP)
+
+
+def chunked_bound_ms(W: int, T: int, C: int, S: int) -> tuple[float, str]:
+    """Least time for fused_viterbinet_detect_chunked: vnet_bound_ms over
+    the chunked_symbols count, y read and bits written once."""
+    return vnet_bound_ms(W, T, S, chunked_symbols(W, T, C))
 
 
 def decode_bound_ms(W: int, T: int, S: int) -> tuple[float, str]:
@@ -340,23 +388,49 @@ def phase_build() -> None:
 
 
 KERNEL_CHECK_SHAPES = ((4096, T_PROTO), (4096, 41), (1000, T_PROTO), (1000, 41), (PROTO_W, T_PROTO))
+# (W, T, chunks) of K4 against its plain version, and the chunk counts at
+# which it must give K1's bits on the protocol's channel words
+CHUNKED_CHECK_SHAPES = ((PROTO_W, T_PROTO, 2), (PROTO_W, T_PROTO, 4), (4096, T_PROTO, 4),
+                        (1000, T_PROTO, 2))
+CHUNKS_EQUAL_TO_K1 = (2, 4)
 DECODE_CHECK_SHAPES = ((1, T_PROTO), (PROTO_W, T_PROTO), (4096, 41))
 
 
-def check_bits(name: str, W: int, T: int, got, want, limit: float) -> dict:
+def check_bits(name: str, W: int, T: int, got, want, limit: float,
+               against: str = "the plain version") -> dict:
     torch.cuda.synchronize()
     if got.shape != (W, T) or not bool(((got == 0) | (got == 1)).all()):
         fail(f"{name} {W}x{T}: output is not a [W, T] tensor of bits")
     err = float((got - want).abs().max())
     rate = float((got != want).float().mean())
-    print(f"{name} {W}x{T}: bit mismatch {rate:.3e} vs the plain version "
+    print(f"{name} {W}x{T}: bit mismatch {rate:.3e} vs {against} "
           f"(limit {'bit-identical' if limit == 0 else f'< {limit:g}'})")
     if rate > limit or (limit > 0 and rate >= limit):
-        fail(f"{name} {W}x{T}: mismatch {rate} against its plain version")
+        fail(f"{name} {W}x{T}: mismatch {rate} against {against}")
     return {"max_abs_err": err, "bit_mismatch_rate": rate}
 
 
-def phase_kernels(model: viterbinet.ViterbiNet, gen: torch.Generator) -> dict:
+def channel_words(W: int, gen: torch.Generator) -> torch.Tensor:
+    """The protocol's words (120 info bits, RS nsym=2) through the 4-tap
+    time-decay fading channel at 10 dB: W x 136 received samples."""
+    return generate_words(10.0, 0.2, n_words=W, block_length=120, memory_length=4, use_ecc=True,
+                          n_symbols=2, channel_coefficients="time_decay", fading=True,
+                          fading_taps_type=1, device="cuda", word_generator=gen,
+                          noise_generator=gen)[1].contiguous()
+
+
+def trained_vnet(weights_dir: str) -> viterbinet.ViterbiNet:
+    """A ViterbiNet after one training minibatch (a sweep over 300 words of
+    the train channel at 10 dB). K4 gives K1's bits only where the trellis
+    forgets its start within the warm-up, which needs informative priors:
+    with untrained random params it may not, and one minibatch is enough
+    (tests/test_torch_kernels.py, on the CPU)."""
+    cfg = Config(train_minibatch_num=1, weights_dir=weights_dir)
+    return Trainer(cfg, "vnet", verbose=False).train()
+
+
+def phase_kernels(model: viterbinet.ViterbiNet, trained: viterbinet.ViterbiNet,
+                  gen: torch.Generator) -> dict:
     """Each kernel against its plain version on the card. Returns, per
     (kernel, W, T), the largest |kernel - plain| over the outputs (and the
     bit mismatch rate of the detect kernels)."""
@@ -372,6 +446,19 @@ def phase_kernels(model: viterbinet.ViterbiNet, gen: torch.Generator) -> dict:
         checks[("fused_viterbinet_detect", W, T)] = check_bits(
             "fused_viterbinet_detect", W, T, acs.fused_viterbinet_detect(model, y),
             acs.fused_viterbinet_detect_plain(model, y), 1e-3)
+    name = "fused_viterbinet_detect_chunked"
+    for W, T, C in CHUNKED_CHECK_SHAPES:
+        y = kernel_inputs(W, T, gen)[0]
+        checks[(name, W, T, C)] = check_bits(
+            f"{name} C={C} overlap={OVERLAP}", W, T, acs.fused_viterbinet_detect_chunked(model, y, C),
+            acs.fused_viterbinet_detect_chunked_plain(model, y, C), 1e-3)
+    y = channel_words(PROTO_W, gen)
+    k1_bits = acs.fused_viterbinet_detect(trained, y)
+    for C in CHUNKS_EQUAL_TO_K1:
+        checks[(name, "k1", C)] = check_bits(
+            f"{name} C={C} overlap={OVERLAP} (trained params) on channel words", PROTO_W, T_PROTO,
+            acs.fused_viterbinet_detect_chunked(trained, y, C), k1_bits, 0.0,
+            against="K1 (fused_viterbinet_detect) on the card")
     for W, T in DECODE_CHECK_SHAPES:
         priors = mlp_priors(model, kernel_inputs(W, T, gen)[0])
         checks[("viterbi_decode_kernel", W, T)] = check_bits(
@@ -419,25 +506,32 @@ def phase_kernels(model: viterbinet.ViterbiNet, gen: torch.Generator) -> dict:
     return checks
 
 
-def phase_slice(model: viterbinet.ViterbiNet) -> dict:
+def phase_slice(model: viterbinet.ViterbiNet, trained: viterbinet.ViterbiNet) -> dict:
     cfg = Config(val_frames=12, val_SNR_start=7.0, val_SNR_end=12.0)
     va_trainer = Trainer(cfg, "va", verbose=False)
     vnet_cfg = cfg.replace(val_SNR_start=10.0, val_SNR_end=10.0)
     vnet_trainer = Trainer(vnet_cfg, "vnet", params=model, verbose=False)
+    # the chunked point and its unchunked twin with trained params (see
+    # trained_vnet), on the same batch
+    chunked_cfg = vnet_cfg.replace(eval_time_chunks=4)
+    chunked_trainer = Trainer(chunked_cfg, "vnet", params=trained, verbose=False)
+    twin_trainer = Trainer(vnet_cfg, "vnet", params=trained, verbose=False)
     n_words = cfg.n_words("val")
+    snrs = [float(s) for s in cfg.snr_range("val")]
     print(f"slice: {n_words} words x {cfg.transmission_length('val')} symbols, "
           f"RS nsym={cfg.n_symbols}, {cfg.memory_length}-tap {cfg.channel_coefficients} channel")
 
     # warm-up on throwaway trainers (first-call set-up: generators, lookup
-    # tables, library load), so that the timed run below is steady-state and
-    # the main-path trainers' streams start fresh
-    Trainer(vnet_cfg, "va", verbose=False).evaluate()
+    # tables, library load), so that the timed runs below are steady-state
+    # and the main-path trainers' streams start fresh
+    Trainer(cfg, "va", verbose=False).evaluate()
     Trainer(vnet_cfg, "vnet", params=model, verbose=False).evaluate()
+    Trainer(chunked_cfg, "vnet", params=trained, verbose=False).evaluate()
 
     zero_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sers = va_trainer.evaluate()
+    sers = va_trainer.evaluate()  # sweep_eval_fused
     torch.cuda.synchronize()
     va_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -446,32 +540,89 @@ def phase_slice(model: viterbinet.ViterbiNet) -> dict:
     vnet_s = time.perf_counter() - t0
     launches = read_launches()
 
-    snrs = [float(s) for s in cfg.snr_range("val")]
+    zero_launches()
+    t0 = time.perf_counter()
+    chunked_ser = float(chunked_trainer.evaluate()[0])
+    torch.cuda.synchronize()
+    chunked_s = time.perf_counter() - t0
+    chunked_launches = read_launches()
+    twin_ser = float(twin_trainer.evaluate()[0])
+
+    # the per-SNR loop from the same seeds
+    loop_trainer = Trainer(cfg, "va", verbose=False)
+    t0 = time.perf_counter()
+    loop = np.asarray([loop_trainer.single_eval_at_point(None, snr, cfg.gamma) for snr in snrs])
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+
     for snr, ser in zip(snrs, sers):
         print(f"VA coded BER at {snr:g} dB: {ser:.6f}")
+    print(f"VA sweep against the per-SNR loop from the same seeds: sweep {sers.tolist()}, "
+          f"loop {loop.tolist()}, bit-equal {np.array_equal(sers, loop)}")
     print(f"vnet (seeded random params) coded BER at 10 dB: {vnet_ser:.6f}")
+    print(f"vnet (trained params) coded BER at 10 dB with eval_time_chunks=4 (K4): "
+          f"{chunked_ser:.6f}; with eval_time_chunks=0 (K1): {twin_ser:.6f}")
     print(f"aggregated main-path launches: {launches}")
+    print(f"chunked vnet point launches: {chunked_launches}")
     va_per_1k = va_s / len(snrs) / n_words * 1000
+    loop_per_1k = loop_s / len(snrs) / n_words * 1000
     vnet_per_1k = vnet_s / n_words * 1000
-    print(f"VA aggregated eval: {va_per_1k:.6f} s per 1000 words (mean of {len(snrs)} points, "
-          f"datagen + detect + RS decode + scoring)")
-    print(f"vnet aggregated eval: {vnet_per_1k:.6f} s per 1000 words")
+    chunked_per_1k = chunked_s / n_words * 1000
+    print(f"VA aggregated eval: {va_per_1k:.6f} s per 1000 words through the fused sweep, "
+          f"{loop_per_1k:.6f} through the per-SNR loop (mean of {len(snrs)} points, datagen + "
+          f"detect + RS decode + scoring)")
+    print(f"vnet aggregated eval: {vnet_per_1k:.6f} s per 1000 words; chunked (K4): "
+          f"{chunked_per_1k:.6f}")
 
     if not np.all(np.isfinite(sers)) or not np.all(np.diff(sers) < 0):
         fail(f"VA coded BER does not fall with SNR: {sers}")
+    if not np.array_equal(sers, loop):
+        fail(f"the VA sweep {sers} differs from the per-SNR loop {loop}")
     ber10 = sers[snrs.index(10.0)]
     if abs(ber10 - VA_BAND[0]) > VA_BAND[1]:
         fail(f"VA coded BER at 10 dB {ber10} outside {VA_BAND[0]} +- {VA_BAND[1]}")
     if not (np.isfinite(vnet_ser) and 0.0 <= vnet_ser <= 1.0):
         fail(f"vnet coded BER {vnet_ser} is not in [0, 1]")
-    if (launches["fused_va_detect"], launches["fused_viterbinet_detect"]) != (len(snrs), 1):
+    if chunked_ser != twin_ser:
+        fail(f"chunked vnet coded BER {chunked_ser} differs from the unchunked {twin_ser}")
+    if (launches["fused_va_detect"], launches["fused_viterbinet_detect"],
+            launches["fused_viterbinet_detect_chunked"]) != (len(snrs), 1, 0):
         fail(f"the aggregated path did not go through the kernels: {launches}")
+    if (chunked_launches["fused_viterbinet_detect_chunked"],
+            chunked_launches["fused_viterbinet_detect"]) != (1, 0):
+        fail(f"the chunked point did not go through K4 alone: {chunked_launches}")
+
+    # chunks shorter than the overlap, and an overlap below the forgetting
+    # depth: both take K1
+    zero_launches()
+    eight_ser = float(Trainer(vnet_cfg.replace(eval_time_chunks=8), "vnet", params=trained,
+                              verbose=False).evaluate()[0])
+    eight = read_launches()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        shallow = Trainer(chunked_cfg.replace(decode_overlap=16), "vnet", params=trained,
+                          verbose=False)
+    zero_launches()
+    shallow_ser = float(shallow.evaluate()[0])
+    shallow_launches = read_launches()
+    print(f"eval_time_chunks=8: chunks of {T_PROTO // 8} symbols, shorter than the overlap "
+          f"{OVERLAP}, take K1: launches {eight}, coded BER {eight_ser:.6f}")
+    print(f"eval_time_chunks=4 with decode_overlap=16: warning "
+          f"{[str(w.message) for w in caught]}; launches {shallow_launches}, coded BER "
+          f"{shallow_ser:.6f}")
+    for what, got in (("eval_time_chunks=8", eight), ("decode_overlap=16", shallow_launches)):
+        if (got["fused_viterbinet_detect"], got["fused_viterbinet_detect_chunked"]) != (1, 0):
+            fail(f"{what}: expected one K1 launch and no K4, got {got}")
+    if not caught or eight_ser != twin_ser or shallow_ser != twin_ser:
+        fail("the unchunked routes did not warn or did not give K1's coded BER")
 
     # the device's share of one point (throwaway trainers, after the counts
     # were read)
     busy = {}
     for name, trainer in (("va", Trainer(vnet_cfg, "va", verbose=False)),
-                          ("vnet", Trainer(vnet_cfg, "vnet", params=model, verbose=False))):
+                          ("vnet", Trainer(vnet_cfg, "vnet", params=model, verbose=False)),
+                          ("vnet_chunked", Trainer(chunked_cfg, "vnet", params=trained,
+                                                   verbose=False))):
         busy[name] = device_busy(
             lambda: trainer.single_eval_at_point(trainer.params, 10.0, cfg.gamma))
         print(busy_line(f"{name} point at 10 dB", busy[name]))
@@ -480,17 +631,47 @@ def phase_slice(model: viterbinet.ViterbiNet) -> dict:
     cpu_va = Trainer(cfg, "va", device="cpu", verbose=False)
     model_cpu = copy.deepcopy(model).cpu()
     cpu_vnet = Trainer(vnet_cfg, "vnet", device="cpu", params=model_cpu, verbose=False)
+    cpu_chunked = Trainer(chunked_cfg, "vnet", device="cpu", params=copy.deepcopy(trained).cpu(),
+                          verbose=False)
     tx, rx = va_trainer.val_dataset.get(10.0, cfg.gamma)
     h = va_trainer.decoder_csi(n_words)
     for name, gpu_t, cpu_t, tol in (("va", va_trainer, cpu_va, 1e-4),
-                                    ("vnet", vnet_trainer, cpu_vnet, 2e-3)):
+                                    ("vnet", vnet_trainer, cpu_vnet, 2e-3),
+                                    ("vnet_chunked", chunked_trainer, cpu_chunked, 2e-3)):
         on_card = float(gpu_t.eval_tail(gpu_t.params, tx, rx, h))
         on_cpu = float(cpu_t.eval_tail(cpu_t.params, tx.cpu(), rx.cpu(), h.cpu()))
         print(f"{name} eval tail on one 10 dB batch: card {on_card:.6f}, plain CPU {on_cpu:.6f}")
         if abs(on_card - on_cpu) > tol:
             fail(f"{name} eval tail: card {on_card} vs CPU {on_cpu} differ by more than {tol}")
-    return {"launches": launches, "va_s_per_1k": va_per_1k, "vnet_s_per_1k": vnet_per_1k,
-            "va_ber": [float(s) for s in sers], "vnet_ber_10db": vnet_ser, "busy": busy}
+    return {"launches": launches, "chunked_launches": chunked_launches,
+            "va_s_per_1k": va_per_1k, "va_loop_s_per_1k": loop_per_1k,
+            "vnet_s_per_1k": vnet_per_1k, "vnet_chunked_s_per_1k": chunked_per_1k,
+            "va_ber": [float(s) for s in sers], "vnet_ber_10db": vnet_ser,
+            "vnet_trained_ber_10db": {"chunked_4": chunked_ser, "unchunked": twin_ser},
+            "busy": busy}
+
+
+def phase_anchors() -> dict:
+    """Two recorded anchors of the reference (tests/test_parity_anchor.py):
+    uncoded full-CSI VA at 10 dB, and VA on the COST2100 channel at 8 dB."""
+    with open(os.path.join(RESOURCES_DIR, "reference_baselines.json")) as f:
+        base = json.load(f)
+    cells = {**base.get("r3_parity_matrix", {}).get("cells", {}),
+             **base.get("r4_parity_matrix", {}).get("cells", {})}
+    out = {}
+    for name, ref, tol, cfg, snr in (
+            ("uncoded VA 10 dB", base["va_full_csi"]["uncoded"]["points"]["10.0"], UNCODED_VA_TOL,
+             Config(use_ecc=False, val_frames=10), 10.0),
+            ("COST2100 VA 8 dB", float(np.mean(cells["va_joint_cost2100"]["points"]["8.0"]["ref"])),
+             COST2100_VA_TOL, Config(val_frames=12, val_SNR_start=8.0, val_SNR_end=8.0,
+                                     channel_coefficients="cost2100", fading_in_channel=False),
+             8.0)):
+        ours = Trainer(cfg, "va", verbose=False).single_eval_at_point(None, snr, cfg.gamma)
+        print(f"anchor {name}: BER {ours:.6f}, reference {ref:.6f} +- {tol}")
+        if abs(ours - ref) > tol:
+            fail(f"anchor {name}: {ours} outside {ref} +- {tol}")
+        out[name] = {"ber": ours, "reference": ref, "band": tol}
+    return out
 
 
 def online_cfg(mode: str, weights_dir: str) -> Config:
@@ -548,7 +729,8 @@ def run_by_word(name: str, mode: str, weights_dir: str, band: tuple) -> dict:
     if launches["online_adapt_viterbinet"] != want_k6 or (mode == "meta" and want_k6 == 0):
         fail(f"{name} {mode}: K6 launched {launches['online_adapt_viterbinet']} times for "
              f"{result.n_gated} gated blocks")
-    if launches["fused_viterbinet_detect"] or launches["fused_va_detect"]:
+    if launches["fused_viterbinet_detect"] or launches["fused_va_detect"] \
+            or launches["fused_viterbinet_detect_chunked"]:
         fail(f"{name} {mode}: the by-word path launched a batch detect kernel: {launches}")
     if train_launches["fused_viterbinet_detect"] != cfg.train_minibatch_num:
         fail(f"{name} {mode}: train-on-miss evaluated through K1 "
@@ -559,47 +741,46 @@ def run_by_word(name: str, mode: str, weights_dir: str, band: tuple) -> dict:
             "n_gated": result.n_gated}
 
 
-def phase_online() -> dict:
+def phase_online(weights_dir: str) -> dict:
     out = {}
-    with tempfile.TemporaryDirectory() as weights_dir:
-        meta = run_by_word("meta_vnet", "meta", f"{weights_dir}/meta_vnet", META_VNET_BAND)
-        joint = run_by_word("vnet", "joint", f"{weights_dir}/vnet", VNET_JOINT_BAND)
+    meta = run_by_word("meta_vnet", "meta", f"{weights_dir}/meta_vnet", META_VNET_BAND)
+    joint = run_by_word("vnet", "joint", f"{weights_dir}/vnet", VNET_JOINT_BAND)
 
-        # the device's idle share over 300 blocks: a second by-word run of
-        # each under the profiler (a fresh trainer on the same checkpoint,
-        # so the first val batch of its stream)
-        for name, run in (("meta_vnet", meta), ("vnet", joint)):
-            again = Trainer(run["cfg"], name, verbose=False)
-            again.params = again.load_weights(10.0, run["cfg"].gamma)
-            run["busy"] = device_busy(lambda: again.eval_by_word(10.0, run["cfg"].gamma))
-            print(busy_line(f"{name} 300 by-word blocks (a second run)", run["busy"]))
+    # the device's idle share over 300 blocks: a second by-word run of
+    # each under the profiler (a fresh trainer on the same checkpoint,
+    # so the first val batch of its stream)
+    for name, run in (("meta_vnet", meta), ("vnet", joint)):
+        again = Trainer(run["cfg"], name, verbose=False)
+        again.params = again.load_weights(10.0, run["cfg"].gamma)
+        run["busy"] = device_busy(lambda: again.eval_by_word(10.0, run["cfg"].gamma))
+        print(busy_line(f"{name} 300 by-word blocks (a second run)", run["busy"]))
 
-        # the first 25 meta-mode blocks on the card and through the CPU plain
-        # path, from the same params, blocks and draws
-        cfg = meta["cfg"]
-        card_t = Trainer(cfg, "meta_vnet", verbose=False)
-        params = card_t.load_weights(10.0, cfg.gamma)
-        tx, rx = card_t.val_dataset.get(10.0, cfg.gamma)
-        h = card_t.decoder_csi(tx.shape[0])
-        n = CARD_CPU_BLOCKS
-        sers = {}
-        for device, p in (("cuda", params), ("cpu", copy.deepcopy(params).cpu())):
-            draws = Draws(cfg, card_t.spec, torch.device(device),
-                          torch.Generator(device=device).manual_seed(SEED),
-                          torch.Generator().manual_seed(SEED))
-            t0 = time.perf_counter()
-            sers[device] = run_online(cfg, card_t.spec, p, tx[:n].to(device), rx[:n].to(device),
-                                      h[:n].to(device), draws).ser_by_word
-            print(f"meta_vnet first {n} blocks on {device}: {time.perf_counter() - t0:.2f} s")
-        di = np.arange(n)[np.arange(n) % cfg.subframes_in_frame != 0]
-        block_diff = float(np.abs(sers["cuda"] - sers["cpu"]).max())
-        mean_diff = abs(float(sers["cuda"][di].mean()) - float(sers["cpu"][di].mean()))
-        print(f"meta_vnet first {n} blocks, card against CPU: largest per-block SER difference "
-              f"{block_diff:.6f} (limit {CARD_CPU_BLOCK_TOL:.6f}), mean data SER difference "
-              f"{mean_diff:.6f} (limit {CARD_CPU_MEAN_TOL:g}); card {sers['cuda'].tolist()}, "
-              f"CPU {sers['cpu'].tolist()}")
-        if block_diff > CARD_CPU_BLOCK_TOL or mean_diff > CARD_CPU_MEAN_TOL:
-            fail("meta_vnet: the card and the CPU disagree on the first blocks")
+    # the first 25 meta-mode blocks on the card and through the CPU plain
+    # path, from the same params, blocks and draws
+    cfg = meta["cfg"]
+    card_t = Trainer(cfg, "meta_vnet", verbose=False)
+    params = card_t.load_weights(10.0, cfg.gamma)
+    tx, rx = card_t.val_dataset.get(10.0, cfg.gamma)
+    h = card_t.decoder_csi(tx.shape[0])
+    n = CARD_CPU_BLOCKS
+    sers = {}
+    for device, p in (("cuda", params), ("cpu", copy.deepcopy(params).cpu())):
+        draws = Draws(cfg, card_t.spec, torch.device(device),
+                      torch.Generator(device=device).manual_seed(SEED),
+                      torch.Generator().manual_seed(SEED))
+        t0 = time.perf_counter()
+        sers[device] = run_online(cfg, card_t.spec, p, tx[:n].to(device), rx[:n].to(device),
+                                  h[:n].to(device), draws).ser_by_word
+        print(f"meta_vnet first {n} blocks on {device}: {time.perf_counter() - t0:.2f} s")
+    di = np.arange(n)[np.arange(n) % cfg.subframes_in_frame != 0]
+    block_diff = float(np.abs(sers["cuda"] - sers["cpu"]).max())
+    mean_diff = abs(float(sers["cuda"][di].mean()) - float(sers["cpu"][di].mean()))
+    print(f"meta_vnet first {n} blocks, card against CPU: largest per-block SER difference "
+          f"{block_diff:.6f} (limit {CARD_CPU_BLOCK_TOL:.6f}), mean data SER difference "
+          f"{mean_diff:.6f} (limit {CARD_CPU_MEAN_TOL:g}); card {sers['cuda'].tolist()}, "
+          f"CPU {sers['cpu'].tolist()}")
+    if block_diff > CARD_CPU_BLOCK_TOL or mean_diff > CARD_CPU_MEAN_TOL:
+        fail("meta_vnet: the card and the CPU disagree on the first blocks")
     for name, run in (("meta_vnet_meta", meta), ("vnet_joint", joint)):
         out[name] = {k: v for k, v in run.items() if k not in ("cfg", "trainer", "sers")}
     out["card_vs_cpu"] = {"blocks": n, "max_block_ser_diff": block_diff,
@@ -607,20 +788,133 @@ def phase_online() -> dict:
     return out
 
 
+def run_cli(argv: list) -> dict:
+    """cli.main in this process; returns its last line's JSON."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    if rc != 0:
+        fail(f"cli {argv}: exit code {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def phase_cli(vnet_dir: str) -> dict:
+    """The port's CLI: the trained vnet checkpoint of the joint by-word run,
+    evaluated aggregated through K4 with no training, in process; then the
+    VA from `python -m metaviterbinet_tpu_torch` in a subprocess."""
+    base = ["evaluate", "--detector", "vnet", "--snr", "10", "--weights-dir", vnet_dir,
+            "--set", "fading_taps_type=2", "val_frames=12"]
+    zero_launches()
+    chunked = run_cli(base + ["eval_time_chunks=4"])
+    chunked_launches = read_launches()
+    zero_launches()
+    plain = run_cli(base + ["eval_time_chunks=0"])
+    plain_launches = read_launches()
+    ber = chunked["mean_ser"]
+    print(f"cli evaluate vnet (trained checkpoint), eval_time_chunks=4: {chunked}, launches "
+          f"{chunked_launches}; eval_time_chunks=0: {plain}, launches {plain_launches}; "
+          f"band {VNET_JOINT_BAND[0]} +- {VNET_JOINT_BAND[1]}")
+    if (chunked_launches["fused_viterbinet_detect_chunked"],
+            chunked_launches["fused_viterbinet_detect"]) != (1, 0):
+        fail(f"cli chunked eval: expected one K4 launch and no training, got {chunked_launches}")
+    if (plain_launches["fused_viterbinet_detect"], plain_launches["fused_viterbinet_detect_chunked"]) \
+            != (1, 0):
+        fail(f"cli unchunked eval: expected one K1 launch, got {plain_launches}")
+    if abs(ber - VNET_JOINT_BAND[0]) > VNET_JOINT_BAND[1]:
+        fail(f"cli chunked eval: coded BER {ber} outside the vnet joint band")
+    if plain["mean_ser"] != ber:
+        fail(f"cli: chunked {ber} and unchunked {plain['mean_ser']} differ")
+
+    cmd = [sys.executable, "-m", "metaviterbinet_tpu_torch", "evaluate", "--detector", "va",
+           "--snr", "10", "--set", "val_frames=12"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT_DIR, env=dict(os.environ, PYTHONPATH=ROOT_DIR),
+                          capture_output=True, text=True, timeout=600)
+    sub_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"{' '.join(cmd[1:])}: exit code {proc.returncode}\n{proc.stderr[-4000:]}")
+    sub = json.loads(proc.stdout.strip().splitlines()[-1])
+    cfg = Config(val_frames=12, val_SNR_start=10.0, val_SNR_end=10.0)
+    in_process = float(Trainer(cfg, "va", verbose=False).evaluate().mean())
+    print(f"python -m metaviterbinet_tpu_torch evaluate --detector va --snr 10 --set "
+          f"val_frames=12: exit 0 in {sub_s:.1f} s, last line {sub}; in process {in_process}")
+    if sub["mean_ser"] != in_process:
+        fail(f"cli subprocess BER {sub['mean_ser']} differs from in process {in_process}")
+    return {"vnet_chunked": chunked, "vnet_unchunked": plain, "launches": chunked_launches,
+            "va_subprocess": sub, "va_in_process": in_process, "subprocess_s": sub_s}
+
+
+def phase_bf16(model: viterbinet.ViterbiNet) -> dict:
+    """Config.dtype='bfloat16' on the card against the CPU."""
+    cfg = Config(val_frames=12, dtype="bfloat16")
+    trainer = Trainer(cfg, "vnet", params=model, verbose=False)
+    model_cpu = copy.deepcopy(model).cpu()
+    cpu_spec = Trainer(cfg, "vnet", device="cpu", params=model_cpu, verbose=False).spec
+    tx, rx = trainer.val_dataset.get(10.0, cfg.gamma)
+    with torch.no_grad():
+        card = trainer.spec.score(viterbinet.param_dict(model), rx).cpu()
+        cpu = cpu_spec.score(viterbinet.param_dict(model_cpu), rx.cpu())
+    diff = (card - cpu).abs()
+    limit = BF16_LOGIT_TOL * max(1.0, float(cpu.abs().max()))
+    zero_launches()
+    bits = trainer.spec.engine_detect(model, rx, None)
+    engine_launches = read_launches()
+    cpu_bits = cpu_spec.engine_detect(model_cpu, rx.cpu(), None)
+    mismatch = float((bits.cpu() != cpu_bits).float().mean())
+    print(f"bf16 logits of the {tuple(rx.shape)} val batch, card against CPU: max |diff| "
+          f"{float(diff.max()):.3e} (limit {limit:.3e}), {float((diff > 0).float().mean()):.3e} of "
+          f"them differ; engine detect bit mismatch {mismatch:.3e} (limit < 1e-3), launches "
+          f"{engine_launches}")
+    if card.dtype != torch.float32 or not float(diff.max()) <= limit:
+        fail("bf16 logits: the card and the CPU disagree")
+    if mismatch >= 1e-3 or engine_launches["viterbi_decode_kernel"] != 1:
+        fail("bf16 engine detect: the card and the CPU disagree, or K5 did not run")
+
+    fresh = trainer.init_params()
+    params = viterbinet.param_dict(fresh)
+    optimizer = Optimizer(cfg.optimizer_type, cfg.lr)
+    opt_state = optimizer.init(params)
+    ttx, trx = trainer.train_dataset.get(10.0, cfg.gamma)
+    select = [select_batch(ttx.shape[1], cfg.train_minibatch_size, trainer.generator, "cuda")
+              for _ in range(ttx.shape[0])]
+    t0 = time.perf_counter()
+    loss = float(word_sweep(trainer.loss_fn, optimizer, params, opt_state, trx, ttx, select))
+    sweep_s = time.perf_counter() - t0
+    fused = {dtype: uses_fused_adaptation(cfg.replace(dtype=dtype), Trainer(
+        cfg.replace(dtype=dtype), "meta_vnet", params=model, verbose=False).spec)
+        for dtype in ("float32", "bfloat16")}
+    print(f"bf16 word sweep over {ttx.shape[0]} words: loss {loss:.4f} ({sweep_s:.2f} s); "
+          f"uses_fused_adaptation for meta_vnet: {fused}")
+    if not np.isfinite(loss) or not all(bool(torch.isfinite(p).all()) for p in params.values()):
+        fail(f"bf16 word sweep: loss {loss} or params not finite")
+    if fused != {"float32": True, "bfloat16": False}:
+        fail(f"bf16: K6 must not run the bf16 self-supervised step: {fused}")
+    return {"logit_max_diff": float(diff.max()), "logit_limit": limit,
+            "engine_bit_mismatch": mismatch, "word_sweep_loss": loss, "word_sweep_s": sweep_s}
+
+
+CHUNKED_TIMED = ((PROTO_W, 2), (PROTO_W, 4), (WIDE_W, 4))
+
+
 def phase_width(model: viterbinet.ViterbiNet, gen: torch.Generator, card: str) -> dict:
     times = {}
 
-    def record(name, W, kernel, plain, bound, wide=False, per_graph=20, plain_per_graph=2):
+    def record(name, W, kernel, plain, bound, wide=False, per_graph=20, plain_per_graph=2,
+               C=None):
         ms = graph_ms(kernel, per_graph=per_graph, replays=10 if per_graph > 2 else 3)
         plain_ms = graph_ms(plain, per_graph=plain_per_graph, replays=5 if not wide else 3)
         kernel_call = call_ms(kernel, reps=20 if per_graph > 2 else 5)
         plain_call = call_ms(plain, reps=10 if wide else 5, warmup=1)
-        print(f"width {name} W={W}: kernel {ms:.5f} ms on the device, {kernel_call:.5f} ms per "
+        shape = f"W={W}" if C is None else f"W={W} C={C}"
+        beside = ""
+        if C is not None:
+            beside = f"; K1 at the same shape {times[('fused_viterbinet_detect', W)]['ms']:.5f} ms"
+        print(f"width {name} {shape}: kernel {ms:.5f} ms on the device, {kernel_call:.5f} ms per "
               f"eager call; plain {plain_ms:.4f} ms on the device, {plain_call:.4f} ms per eager "
-              f"call; bound {bound[0]:.3e} ms ({bound[1]}) [{card}]")
-        times[(name, W)] = {"ms": ms, "plain_ms": plain_ms, "call_ms": kernel_call,
-                            "plain_call_ms": plain_call, "bound_ms": bound[0],
-                            "bound_by": bound[1]}
+              f"call; bound {bound[0]:.3e} ms ({bound[1]}){beside} [{card}]")
+        times[(name, W) if C is None else (name, W, C)] = {
+            "ms": ms, "plain_ms": plain_ms, "call_ms": kernel_call, "plain_call_ms": plain_call,
+            "bound_ms": bound[0], "bound_by": bound[1]}
 
     for W in (PROTO_W, WIDE_W):
         y, mu = kernel_inputs(W, T_PROTO, gen)
@@ -630,6 +924,15 @@ def phase_width(model: viterbinet.ViterbiNet, gen: torch.Generator, card: str) -
         record("fused_viterbinet_detect", W, lambda: acs.fused_viterbinet_detect(model, y),
                lambda: acs.fused_viterbinet_detect_plain(model, y),
                vnet_bound_ms(W, T_PROTO, 16), wide)
+    for W, C in CHUNKED_TIMED:
+        y = kernel_inputs(W, T_PROTO, gen)[0]
+        record("fused_viterbinet_detect_chunked", W,
+               lambda: acs.fused_viterbinet_detect_chunked(model, y, C),
+               lambda: acs.fused_viterbinet_detect_chunked_plain(model, y, C),
+               chunked_bound_ms(W, T_PROTO, C, 16), W == WIDE_W, C=C)
+        print(f"fused_viterbinet_detect_chunked W={W} C={C}: bound over "
+              f"{chunked_symbols(W, T_PROTO, C)} symbols through the MLP and the ACS, "
+              f"{chunked_symbols(W, T_PROTO, C) / (W * T_PROTO):.4f}x K1's")
     for W in (1, PROTO_W):
         priors = mlp_priors(model, kernel_inputs(W, T_PROTO, gen)[0])
         record("viterbi_decode_kernel", W, lambda: acs.viterbi_decode_kernel(priors),
@@ -651,10 +954,13 @@ def phase_width(model: viterbinet.ViterbiNet, gen: torch.Generator, card: str) -
 
 REPLACES = {"fused_va_detect": "metaviterbinet_tpu/kernels/acs.py:409",
             "fused_viterbinet_detect": "metaviterbinet_tpu/kernels/acs.py:262",
+            "fused_viterbinet_detect_chunked": "metaviterbinet_tpu/kernels/acs.py:306",
             "viterbi_decode_kernel": "metaviterbinet_tpu/kernels/acs.py:451",
             "online_adapt_viterbinet": "metaviterbinet_tpu/kernels/online_sgd.py:156"}
 SOURCES = {"fused_va_detect": "metaviterbinet_tpu_torch/kernels/csrc/va_detect.cu",
            "fused_viterbinet_detect": "metaviterbinet_tpu_torch/kernels/csrc/viterbinet_detect.cu",
+           "fused_viterbinet_detect_chunked":
+               "metaviterbinet_tpu_torch/kernels/csrc/viterbinet_detect_chunked.cu",
            "viterbi_decode_kernel": "metaviterbinet_tpu_torch/kernels/csrc/viterbi_decode.cu",
            "online_adapt_viterbinet": "metaviterbinet_tpu_torch/kernels/csrc/online_adapt.cu"}
 
@@ -678,6 +984,28 @@ def kernel_rows(checks: dict, sl: dict, online: dict, times: dict) -> list:
             "bound_ms_65536": wide_row["bound_ms"], "bound_by_65536": wide_row["bound_by"],
             "checked": [{"shape": [W, T], **checks[(name, W, T)]} for W, T in KERNEL_CHECK_SHAPES],
         })
+    name = "fused_viterbinet_detect_chunked"
+    main_row = times[(name, PROTO_W, 4)]
+    rows.append({
+        "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+        "launches": sl["chunked_launches"][name],
+        "max_abs_err": checks[(name, PROTO_W, T_PROTO, 4)]["max_abs_err"],
+        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
+        "bound_by": main_row["bound_by"], "library_ms": None, "shape": [PROTO_W, T_PROTO],
+        "chunks": 4, "overlap": OVERLAP,
+        "bound_symbols": chunked_symbols(PROTO_W, T_PROTO, 4),
+        "bit_mismatch_rate": checks[(name, PROTO_W, T_PROTO, 4)]["bit_mismatch_rate"],
+        "call_ms": main_row["call_ms"], "plain_call_ms": main_row["plain_call_ms"],
+        "k1_ms_same_shape": times[("fused_viterbinet_detect", PROTO_W)]["ms"],
+        "timed": [{"shape": [W, T_PROTO], "chunks": C, **times[(name, W, C)],
+                   "bound_symbols": chunked_symbols(W, T_PROTO, C),
+                   "k1_ms_same_shape": times[("fused_viterbinet_detect", W)]["ms"]}
+                  for W, C in CHUNKED_TIMED],
+        "checked": [{"shape": [W, T], "chunks": C, **checks[(name, W, T, C)]}
+                    for W, T, C in CHUNKED_CHECK_SHAPES],
+        "equal_to_k1": [{"shape": [PROTO_W, T_PROTO], "chunks": C, **checks[(name, "k1", C)]}
+                        for C in CHUNKS_EQUAL_TO_K1],
+    })
     name = "viterbi_decode_kernel"
     row, wide = times[(name, 1)], times[(name, PROTO_W)]
     rows.append({
@@ -719,15 +1047,25 @@ def main() -> int:
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     model = viterbinet.init_params(16, gen, device="cuda")
-    checks = phase_kernels(model, gen)
-    sl = phase_slice(model)
-    online = phase_online()
+    with tempfile.TemporaryDirectory() as weights_dir:
+        trained = trained_vnet(f"{weights_dir}/one_minibatch")
+        checks = phase_kernels(model, trained, gen)
+        sl = phase_slice(model, trained)
+        anchors = phase_anchors()
+        online = phase_online(weights_dir)
+        cli_out = phase_cli(f"{weights_dir}/vnet")
+    bf16 = phase_bf16(model)
     times = phase_width(model, gen, card)
 
     print(json.dumps({"kernels": kernel_rows(checks, sl, online, times), "card": card,
-                      "eval_s_per_1000_words": {"va": sl["va_s_per_1k"], "vnet": sl["vnet_s_per_1k"]},
+                      "eval_s_per_1000_words": {
+                          "va_sweep": sl["va_s_per_1k"], "va_loop": sl["va_loop_s_per_1k"],
+                          "vnet": sl["vnet_s_per_1k"], "vnet_chunked": sl["vnet_chunked_s_per_1k"]},
                       "point_under_profiler_10db": sl["busy"],
-                      "va_coded_ber_7_to_12db": sl["va_ber"], "by_word_10db": online}))
+                      "va_coded_ber_7_to_12db": sl["va_ber"],
+                      "vnet_coded_ber_10db": {"random_params": sl["vnet_ber_10db"],
+                                              "trained_params": sl["vnet_trained_ber_10db"]},
+                      "anchors": anchors, "by_word_10db": online, "cli": cli_out, "bf16": bf16}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

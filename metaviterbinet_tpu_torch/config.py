@@ -20,9 +20,8 @@ import numpy as np
 # field -> the only value the port runs with until its mechanism is ported
 _NOT_PORTED = {
     "mesh_shape": None,
-    "eval_time_chunks": 0,
-    "dtype": "float32",
 }
+COMPUTE_DTYPES = ("float32", "bfloat16")
 
 
 @dataclass
@@ -87,14 +86,20 @@ class Config:
     meta_subframes: int = 5
 
     # --- extras of the accelerated packages (no reference counterpart) ---
-    dtype: str = "float32"  # detector compute dtype; 'bfloat16' not ported yet
+    dtype: str = "float32"  # the ViterbiNet family's MLP compute dtype:
+    # 'bfloat16' runs its products and activations in bf16 for training and
+    # the online engine (detectors.py::with_compute_dtype); the ACS and the
+    # loss stay f32, and the batch detect kernels round to bf16 either way.
     use_pallas: Optional[bool] = None  # not read by the port: batch detection
     # always goes through the kernel wrappers of kernels/acs.py, which launch
     # the hand-written CUDA kernel for a CUDA tensor and run its plain
     # PyTorch version only for a CPU tensor.
     mesh_shape: Optional[tuple] = None  # not ported yet
     decode_overlap: int = 32  # warm-up overlap of the time-chunked detect
-    eval_time_chunks: int = 0  # time-chunked detect; only 0 is ported yet
+    eval_time_chunks: int = 0  # > 1: the ViterbiNet family's batch detect
+    # runs over that many overlap-save time chunks (K4) where T divides and
+    # the chunks are at least decode_overlap long; else K1
+    # (detectors.py::with_time_chunks).
     eval_two_step: Optional[bool] = None  # changes no result in the port:
     # the JAX kernels' two-step ACS is bit-exact against the one-step one,
     # and the CUDA kernels always run the one-step recursion.
@@ -107,6 +112,10 @@ class Config:
                 raise NotImplementedError(
                     f"Config.{name}={getattr(self, name)!r} is not supported by "
                     f"the PyTorch port yet (only {supported!r})")
+        if self.dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"Config.dtype={self.dtype!r}: expected one of {COMPUTE_DTYPES}")
+        if self.eval_time_chunks < 0:
+            raise ValueError(f"Config.eval_time_chunks={self.eval_time_chunks} must be >= 0")
 
     # ---- derived quantities ----
     @property

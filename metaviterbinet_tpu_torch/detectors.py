@@ -18,16 +18,24 @@ through K2 at one word, which is bit-identical to the JAX `va.detect`; the
 ViterbiNet family through its f32 MLP (torch.matmul with TF32 off, see
 device.py::use_f32_matmuls) and then K5, the decode over those priors, and
 never through K1, which rounds to bf16 like the TPU kernel.
+
+Two specialisations, applied by the Trainer in the JAX package's order:
+`with_compute_dtype` (Config.dtype) and `with_time_chunks`
+(Config.eval_time_chunks), the counterparts of `with_compute_dtype` and the
+chunked branch of `with_pallas_detect` there.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import warnings
+from dataclasses import dataclass, replace
+from functools import partial
 from typing import Callable, Optional
 
 import torch
 
 from metaviterbinet_tpu_torch.kernels.acs import (
-    fused_va_detect, fused_viterbinet_detect, viterbi_decode_kernel)
+    fused_va_detect, fused_viterbinet_detect, fused_viterbinet_detect_chunked,
+    viterbi_decode_kernel)
 from metaviterbinet_tpu_torch.models import va, viterbinet
 
 
@@ -53,10 +61,13 @@ def _vnet_detect(params, y: torch.Tensor, h) -> torch.Tensor:
 
 
 @torch.no_grad()
-def _vnet_engine_detect(params, y: torch.Tensor, h) -> torch.Tensor:
-    """ACS over the negated f32 logits (logits are max-good, ACS is min-sum;
-    reference vnet_detector.py:51-61)."""
-    return viterbi_decode_kernel(-viterbinet.score(params, y))
+def _vnet_engine_detect(params, y: torch.Tensor, h,
+                        compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """ACS over the negated logits, returned as f32 whatever the compute
+    dtype (logits are max-good, ACS is min-sum; reference
+    vnet_detector.py:51-61)."""
+    return viterbi_decode_kernel(-viterbinet.logits(viterbinet.param_dict(params), y,
+                                                    compute_dtype))
 
 
 def _vnet_init(cfg, generator, device):
@@ -82,3 +93,46 @@ META_VNET = DetectorSpec(name="meta_vnet", trainable=True, label_kind="states",
                          engine_detect=_vnet_engine_detect)
 
 DETECTORS = {d.name: d for d in (VA, VNET, META_VNET)}
+_VNET_FAMILY = ("vnet", "meta_vnet")
+
+
+def with_time_chunks(spec: DetectorSpec, time_chunks: int, overlap: int = 32,
+                     memory_length: int = 4) -> DetectorSpec:
+    """Route the ViterbiNet family's batch detect through the time-chunked
+    kernel K4 (Config.eval_time_chunks), by the rules of the JAX package's
+    `with_pallas_detect`: chunked only when time_chunks > 1, T divides into
+    time_chunks and the chunks are at least `overlap` long; K1 otherwise.
+    An overlap below 8 * memory_length (the trellis forgetting depth at
+    which the chunked bits were measured equal to K1's) warns and keeps K1.
+    This is a choice between two kernels, not a fallback to a plain
+    version; the launch counters show which one ran. The VA is returned
+    unchanged."""
+    if spec.name not in _VNET_FAMILY or time_chunks <= 1:
+        return spec
+    if overlap < 8 * memory_length:
+        warnings.warn(
+            f"eval_time_chunks={time_chunks} requested with decode_overlap={overlap} < "
+            f"8*memory_length={8 * memory_length}: warm-up would not reach trellis "
+            "forgetting depth; using the unchunked kernel.")
+        return spec
+
+    def detect(params, y: torch.Tensor, h) -> torch.Tensor:
+        T = y.shape[1]
+        if T % time_chunks == 0 and T // time_chunks >= overlap:
+            return fused_viterbinet_detect_chunked(params, y.contiguous(), time_chunks, overlap)
+        return fused_viterbinet_detect(params, y.contiguous())
+
+    return replace(spec, detect=detect)
+
+
+def with_compute_dtype(spec: DetectorSpec, dtype_name: str) -> DetectorSpec:
+    """Specialise the ViterbiNet family to a compute dtype (Config.dtype).
+    'bfloat16': `score` (training, MAML, the online losses) becomes the bf16
+    forward, and `engine_detect` its logits cast to f32, then K5, as the JAX
+    engine captures the bf16 detect. The batch `detect` stays K1/K4, which
+    round to bf16 like the TPU kernel. 'float32' (Config checks that no
+    other dtype is asked for) and the VA are returned unchanged."""
+    if dtype_name != "bfloat16" or spec.name not in _VNET_FAMILY:
+        return spec
+    return replace(spec, score=partial(viterbinet.logits, compute_dtype=torch.bfloat16),
+                   engine_detect=partial(_vnet_engine_detect, compute_dtype=torch.bfloat16))

@@ -13,6 +13,12 @@ Protocol parity:
     package's Trainer.load_weights says why the reference's flip to type 1
     there changes nothing).
   - SER is computed on non-pilot words only (trainer.py:99-102).
+  - The detector spec is specialised as the JAX Trainer does it
+    (trainer.py:57, :84-93): Config.dtype by `with_compute_dtype`, then
+    Config.eval_time_chunks by `with_time_chunks`.
+  - An aggregated eval runs as one sweep over its SNRs (`sweep_eval_fused`,
+    trainer.py:203-226), on every device: every point's params are loaded
+    (or trained on a miss) first, then the points are detected and decoded.
 
 Randomness: `generator` (on the trainer's device) draws the params'
 initialisation, the decoder-CSI noise and the select_batch indices;
@@ -31,7 +37,8 @@ import torch
 
 from metaviterbinet_tpu_torch.config import Config
 from metaviterbinet_tpu_torch.data.dataset import ChannelDataset
-from metaviterbinet_tpu_torch.detectors import DETECTORS, DetectorSpec
+from metaviterbinet_tpu_torch.detectors import (
+    DETECTORS, DetectorSpec, with_compute_dtype, with_time_chunks)
 from metaviterbinet_tpu_torch.device import resolve_device, use_f32_matmuls
 from metaviterbinet_tpu_torch.ecc.rs import rs_decode_bits, rs_encode_bits
 from metaviterbinet_tpu_torch.models import viterbinet
@@ -50,7 +57,7 @@ from metaviterbinet_tpu_torch.train.optim import Optimizer, OptState
 class Trainer:
     def __init__(self, cfg: Config, detector: str | DetectorSpec,
                  device: str | torch.device = "cuda", params: Any = None,
-                 weights_dir: Optional[str] = None, verbose: bool = True):
+                 weights_dir: Optional[str] = None, verbose: bool = True, metrics=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         if self.device.type == "cuda":
@@ -59,8 +66,11 @@ class Trainer:
             if detector not in DETECTORS:
                 raise NotImplementedError(f"detector {detector!r} is not ported yet")
             detector = DETECTORS[detector]
-        self.spec = detector
+        self.spec = with_time_chunks(with_compute_dtype(detector, cfg.dtype),
+                                     cfg.eval_time_chunks, cfg.decode_overlap,
+                                     cfg.memory_length)
         self.verbose = verbose
+        self.metrics = metrics  # optional utils.logging.MetricsLogger
         self.weights_dir = weights_dir or cfg.weights_dir or os.path.join(
             WEIGHTS_DIR, f"{self.spec.name}_{cfg.run_name}")
         self.train_dataset = ChannelDataset(cfg, "train", self.device)
@@ -83,6 +93,10 @@ class Trainer:
     def _log(self, msg: str) -> None:
         if self.verbose:
             print(msg)
+
+    def _metric(self, event: str, **kw) -> None:
+        if self.metrics is not None:
+            self.metrics.log(event, detector=self.spec.name, **kw)
 
     def init_params(self):
         return self.spec.init(self.cfg, self.generator, self.device)
@@ -140,14 +154,40 @@ class Trainer:
             return self.eval_by_word(snr, cfg.gamma)
         if cfg.eval_mode != "aggregated":
             raise ValueError(f"No such eval mode: {cfg.eval_mode}")
-        sers = []
-        for snr in (float(s) for s in cfg.snr_range("val")):
-            params = self._params_at(snr)
-            t0 = time.perf_counter()
-            ser = self.single_eval_at_point(params, snr, cfg.gamma)
-            self._log(f"SNR {snr}: ser {ser:.6f} ({time.perf_counter() - t0:.3f}s)")
-            sers.append(ser)
-        return np.asarray(sers)
+        snrs = [float(s) for s in cfg.snr_range("val")]
+        # every point's params first (checkpoint IO, and training on a miss),
+        # then the sweep (trainer.py:211-217)
+        params_per_snr = [self._params_at(snr) for snr in snrs]
+        t0 = time.perf_counter()
+        sers = self.sweep_eval_fused(snrs, params_per_snr)
+        dt = time.perf_counter() - t0
+        for snr, ser in zip(snrs, sers):
+            self._log(f"SNR {snr}: ser {ser:.6f}")
+            self._metric("eval_point", snr=snr, ser=float(ser), elapsed_s=dt / len(snrs))
+        self._log(f"{len(snrs)}-SNR sweep: {dt:.3f}s")
+        return sers
+
+    def sweep_eval_fused(self, snrs: list, params_per_snr) -> np.ndarray:
+        """Aggregated eval of a whole SNR sweep (trainer.py:239-283): per
+        point, in stream order, generate the val batch, compute the decoder
+        CSI and detect; then one RS decode over every point's words, and each
+        point scored on its non-pilot words. The val generators and the
+        decoder-CSI draws advance as in the per-SNR loop, and the codec
+        decodes each word alone, so the BERs equal the loop's bit for bit
+        when nothing trains in between."""
+        cfg = self.cfg
+        detected, txs = [], []
+        for snr, params in zip(snrs, params_per_snr):
+            tx, rx = self.val_dataset.get(snr, cfg.gamma)
+            h = self.decoder_csi(tx.shape[0])
+            detected.append(self.spec.detect(params, rx, h))
+            txs.append(tx)
+        det_all = torch.cat(detected)
+        dec_all = rs_decode_bits(det_all, cfg.n_symbols)[0] if cfg.use_ecc else det_all
+        di = self._data_indices.to(dec_all.device)
+        n = txs[0].shape[0]
+        bers = [error_rates(dec_all[i * n:(i + 1) * n][di], tx[di])[0] for i, tx in enumerate(txs)]
+        return torch.stack(bers).cpu().numpy().astype(np.float64)
 
     def eval_by_word(self, snr: float, gamma: float) -> np.ndarray:
         """The online adaptation loop over the val blocks (trainer.py:267-354)
@@ -172,9 +212,11 @@ class Trainer:
         if self.spec.trainable:
             self.params = result.params
         sers = result.ser_by_word
+        elapsed = time.perf_counter() - t0
         self._log(f"by-word eval: mean ser {sers.mean():.6f} over {len(sers)} blocks "
-                  f"({time.perf_counter() - t0:.1f}s, buffer fill {result.n_buffer}, "
-                  f"{result.n_gated} gated)")
+                  f"({elapsed:.1f}s, buffer fill {result.n_buffer}, {result.n_gated} gated)")
+        self._metric("by_word_eval", snr=snr, mean_ser=float(sers.mean()), n_blocks=len(sers),
+                     buffer_fill=int(result.n_buffer), elapsed_s=elapsed)
         return sers
 
     # --------------------------------------------------------------- training
@@ -203,6 +245,7 @@ class Trainer:
                 loss = float(word_sweep(self.loss_fn, optimizer, params, opt_state, rx, tx, select))
                 ser = self.single_eval_at_point(model, snr, cfg.gamma)
                 self._log(f"Minibatch {minibatch}, ser - {ser}, loss {loss:.3f}")
+                self._metric("train_minibatch", snr=snr, minibatch=minibatch, ser=ser, loss=loss)
                 if ser < best_ser:
                     self.save_weights(params, loss, snr, cfg.gamma, opt_state)
                     best_ser = ser
@@ -238,6 +281,8 @@ class Trainer:
                 loss = float(total) / max(len(j_hats), 1)
                 ser = self.single_eval_at_point(model, snr, cfg.gamma)
                 self._log(f"Minibatch {minibatch}, ser - {ser}, loss {loss:.4f}")
+                self._metric("meta_train_minibatch", snr=snr, minibatch=minibatch, ser=ser,
+                             loss=loss)
                 self.save_weights(params, loss, snr, cfg.gamma, opt_state)
         self.params = self.load_weights(float(cfg.snr_range("train")[-1]), cfg.gamma)
         return self.params

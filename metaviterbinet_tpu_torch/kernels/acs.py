@@ -1,14 +1,16 @@
 """Add-compare-select kernels for Hopper, and the build of every kernel.
 
-Three hand-written CUDA kernels, one per source in csrc/:
+Four hand-written CUDA kernels, one per source in csrc/:
   - `fused_va_detect` (csrc/va_detect.cu) replaces the Pallas kernel
     metaviterbinet_tpu/kernels/acs.py::fused_va_detect;
   - `fused_viterbinet_detect` (csrc/viterbinet_detect.cu) replaces
     metaviterbinet_tpu/kernels/acs.py::fused_viterbinet_detect;
+  - `fused_viterbinet_detect_chunked` (csrc/viterbinet_detect_chunked.cu)
+    replaces metaviterbinet_tpu/kernels/acs.py::fused_viterbinet_detect_chunked;
   - `viterbi_decode_kernel` (csrc/viterbi_decode.cu) replaces
     metaviterbinet_tpu/kernels/acs.py::pallas_viterbi_decode.
 
-Each source in csrc/ (these three and kernels/online_sgd.py's) is compiled by
+Each source in csrc/ (these four and kernels/online_sgd.py's) is compiled by
 nvcc for sm_90a into a shared library with a plain C interface, at the first
 CUDA call (or all together by `build_kernels`), into kernels/_build/, and
 loaded with ctypes. A wrapper launches its kernel
@@ -47,6 +49,7 @@ _PTR, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "va_detect": (_PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR),
     "viterbinet_detect": (_PTR,) * 8 + (_INT, _INT, _INT, _PTR),
+    "viterbinet_detect_chunked": (_PTR,) * 8 + (_INT,) * 5 + (_PTR,),
     "viterbi_decode": (_PTR, _PTR, _INT, _INT, _INT, _PTR),
     "online_adapt": (_PTR,) * 20 + (_INT,) * 3 + (_F32,) * 9 + (_PTR,),
 }
@@ -224,16 +227,35 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
-@torch.no_grad()
-def fused_viterbinet_detect_plain(model: ViterbiNet, y: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the ViterbiNet kernel: the same MLP with h1,
-    W2, h2 and W3 rounded to bf16 and f32 products, then viterbi_decode."""
+def _bf16_priors(model: ViterbiNet, y: torch.Tensor) -> torch.Tensor:
+    """The kernels' priors [W, T, S]: the MLP with h1, W2, h2 and W3 rounded
+    to bf16 and f32 products, negated."""
     w1, b1, w2, b2, w3, b3 = _mlp_params(model)
     W, T = y.shape
     h1 = torch.sigmoid(y.reshape(-1, 1) * w1 + b1)
     h2 = torch.relu(_bf16(h1) @ _bf16(w2).T + b2)
     logits = _bf16(h2) @ _bf16(w3).T + b3
-    return viterbi_decode(-logits.reshape(W, T, -1))
+    return -logits.reshape(W, T, -1)
+
+
+@torch.no_grad()
+def fused_viterbinet_detect_plain(model: ViterbiNet, y: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the ViterbiNet kernel: the bf16-rounded
+    priors of `_bf16_priors`, then viterbi_decode."""
+    return viterbi_decode(_bf16_priors(model, y))
+
+
+def _check_viterbinet(name: str, model: ViterbiNet, y: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """K1's and K4's checks of y and the network; returns _mlp_params."""
+    _check_f32(name, y, 2, y.device)
+    params = _mlp_params(model)
+    for p in params:
+        if p.device != y.device:
+            raise ValueError(f"{name}: params on {p.device}, y on {y.device}")
+    w1, _, w2, _, w3, _ = params
+    if w1.shape[0] != HIDDEN1 or w2.shape != (HIDDEN2, HIDDEN1) or w3.shape[0] not in SUPPORTED_STATES:
+        raise ValueError(f"{name}: expected a 1-100-50-S network with S in {SUPPORTED_STATES}")
+    return params
 
 
 @torch.no_grad()
@@ -241,16 +263,7 @@ def fused_viterbinet_detect(model: ViterbiNet, y: torch.Tensor) -> torch.Tensor:
     """ViterbiNet hard decode. y [W, T]; returns [W, T] f32 bits. On the card
     the bits agree with `fused_viterbinet_detect_plain` up to rare near-tie
     flips (the products sum in another order)."""
-    _check_f32("fused_viterbinet_detect", y, 2, y.device)
-    params = _mlp_params(model)
-    for p in params:
-        if p.device != y.device:
-            raise ValueError(f"fused_viterbinet_detect: params on {p.device}, y on {y.device}")
-    w1, b1, w2, b2, w3, b3 = params
-    S = w3.shape[0]
-    if w1.shape[0] != HIDDEN1 or w2.shape != (HIDDEN2, HIDDEN1) or S not in SUPPORTED_STATES:
-        raise ValueError("fused_viterbinet_detect: expected a 1-100-50-S network with "
-                         f"S in {SUPPORTED_STATES}")
+    params = _check_viterbinet("fused_viterbinet_detect", model, y)
     if not _route("fused_viterbinet_detect", y):
         return fused_viterbinet_detect_plain(model, y)
     W, T = y.shape
@@ -260,12 +273,75 @@ def fused_viterbinet_detect(model: ViterbiNet, y: torch.Tensor) -> torch.Tensor:
     lib = _library("viterbinet_detect")
     with torch.cuda.device(y.device):
         rc = lib.viterbinet_detect(
-            y.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            w3.data_ptr(), b3.data_ptr(), out.data_ptr(), W, T, S,
-            torch.cuda.current_stream(y.device).cuda_stream)
+            y.data_ptr(), *(p.data_ptr() for p in params), out.data_ptr(), W, T,
+            params[4].shape[0], torch.cuda.current_stream(y.device).cuda_stream)
     _check_launch("fused_viterbinet_detect", rc)
     fused_viterbinet_detect.launches += 1
     return out
 
 
 fused_viterbinet_detect.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K4: ViterbiNet over overlap-save time chunks
+# --------------------------------------------------------------------------
+
+def _check_chunks(T: int, n_chunks: int, overlap: int) -> None:
+    if n_chunks < 1 or T % n_chunks:
+        raise ValueError(f"T={T} must divide into {n_chunks} chunks")
+    if overlap < 1 or overlap > T // n_chunks:
+        raise ValueError(f"overlap {overlap} must lie in [1, chunk length {T // n_chunks}]")
+
+
+@torch.no_grad()
+def fused_viterbinet_detect_chunked_plain(model: ViterbiNet, y: torch.Tensor, n_chunks: int,
+                                          overlap: int = 32) -> torch.Tensor:
+    """Plain PyTorch version of the chunked kernel, built as the JAX wrapper
+    builds it: the [W * C, overlap + Tc] extended words (chunk c prefixed
+    with the last `overlap` symbols of chunk c - 1, chunk 0 with zeros), K1's
+    bf16-rounded priors on them with the first `overlap` steps of every
+    chunk-0 word multiplied by 0, viterbi_decode, the warm-up bits dropped."""
+    W, T = y.shape
+    _check_chunks(T, n_chunks, overlap)
+    Tc = T // n_chunks
+    chunks = y.reshape(W, n_chunks, Tc)
+    warm = torch.cat([y.new_zeros((W, 1, overlap)), chunks[:, :-1, Tc - overlap:]], dim=1)
+    ext = torch.cat([warm, chunks], dim=2).reshape(W * n_chunks, overlap + Tc)
+    priors = _bf16_priors(model, ext)
+    # word j = w * C + c holds chunk c of word w: mask 0 iff c == 0
+    mask = (torch.arange(W * n_chunks, device=y.device) % n_chunks != 0).to(y.dtype)
+    priors[:, :overlap] = priors[:, :overlap] * mask[:, None, None]
+    return viterbi_decode(priors)[:, overlap:].reshape(W, T)
+
+
+@torch.no_grad()
+def fused_viterbinet_detect_chunked(model: ViterbiNet, y: torch.Tensor, n_chunks: int,
+                                    overlap: int = 32) -> torch.Tensor:
+    """ViterbiNet hard decode over `n_chunks` time chunks, each warmed up on
+    its left neighbour's last `overlap` symbols. y [W, T] (any W), T %
+    n_chunks == 0, 1 <= overlap <= T / n_chunks; returns [W, T] f32 bits.
+    A symbol's priors are bit-identical to K1's, so the bits equal
+    `fused_viterbinet_detect` wherever the trellis forgets within `overlap`
+    steps; on the card they agree with the plain version up to rare
+    near-tie flips, as K1's do."""
+    params = _check_viterbinet("fused_viterbinet_detect_chunked", model, y)
+    W, T = y.shape
+    _check_chunks(T, n_chunks, overlap)
+    if not _route("fused_viterbinet_detect_chunked", y):
+        return fused_viterbinet_detect_chunked_plain(model, y, n_chunks, overlap)
+    out = torch.empty_like(y)
+    if y.numel() == 0:
+        return out
+    lib = _library("viterbinet_detect_chunked")
+    with torch.cuda.device(y.device):
+        rc = lib.viterbinet_detect_chunked(
+            y.data_ptr(), *(p.data_ptr() for p in params), out.data_ptr(), W, T,
+            params[4].shape[0], n_chunks, overlap,
+            torch.cuda.current_stream(y.device).cuda_stream)
+    _check_launch("fused_viterbinet_detect_chunked", rc)
+    fused_viterbinet_detect_chunked.launches += 1
+    return out
+
+
+fused_viterbinet_detect_chunked.launches = 0

@@ -1,22 +1,16 @@
 // ViterbiNet detect: the per-symbol 1 -> 100 -> 50 -> S branch-metric MLP
-// fused with the greedy zero-delay ACS recursion.
+// (viterbinet_mlp.cuh) fused with the greedy zero-delay ACS recursion.
 //
 // Replaces the Pallas kernel
 // metaviterbinet_tpu/kernels/acs.py::fused_viterbinet_detect
-// (_run_detect_kernel -> _detect_kernel). Per symbol:
-//   h1 = sigmoid(w1 * y + b1)            [100], f32
-//   h2 = relu(W2 . bf16(h1) + b2)        [50],  bf16 operands, f32 sums
-//   logits = W3 . bf16(h2) + b3          [S],   bf16 operands, f32 sums
-//   prior = -logits, then one ACS step.
-// Only y is read and only the bits are written; no activation or prior
-// reaches device memory.
+// (_run_detect_kernel -> _detect_kernel). Only y is read and only the bits
+// are written; no activation or prior reaches device memory.
 //
 // What bounds it on an H100: operations. ~1.2e4 FLOP per symbol against
 // 8 bytes of y and bits. The products have bf16 operands, whose peak is the
 // tensor cores'; this first version runs them as f32 FMAs on the CUDA
-// cores (a bf16 x bf16 product is exact in f32, so an FMA rounds exactly
-// like a multiply then an add), which caps it at the f32 rate. Moving the
-// two products onto wgmma is later work.
+// cores, which caps it at the f32 rate. Moving the two products onto wgmma
+// is later work.
 // What the design does about it: the MLP does not depend on the ACS chain,
 // so a block of 8 words computes the priors of 32 steps of its words with
 // all 256 threads (one (word, step) each, weights broadcast from shared
@@ -24,22 +18,16 @@
 // chains over those 32 steps with their metrics in registers. Several
 // blocks share an SM, so one block's chains overlap another's MLP. Any W
 // and T: the ragged edges are masked.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "acs.cuh"
+#include "viterbinet_mlp.cuh"
 
 namespace {
 
-constexpr int kH1 = 100;
-constexpr int kH2 = 50;
 constexpr int kWords = 8;                   // words (chains) per block
 constexpr int kSteps = 32;                  // time steps per chunk
 constexpr int kThreads = kWords * kSteps;   // one (word, step) per thread
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 template <int S>
 __global__ void __launch_bounds__(kThreads)
@@ -52,27 +40,12 @@ viterbinet_detect_kernel(const float* __restrict__ y, const float* __restrict__ 
   // both the MLP threads' writes and the chain threads' reads conflict-free
   constexpr int kStepStride = S + 1;
   constexpr int kWordStride = kSteps * kStepStride + 1;
-  __shared__ float s_w1[kH1], s_b1[kH1], s_b2[kH2], s_b3[S];
-  __shared__ float s_w2t[kH1][kH2];  // bf16-rounded W2, transposed [in][out]
-  __shared__ float s_w3t[kH2][S];    // bf16-rounded W3, transposed [in][out]
+  __shared__ MlpWeights<S> s_mlp;
   __shared__ float s_prior[kWords * kWordStride];
   __shared__ float s_bits[kWords][kSteps];
 
   const int tid = threadIdx.x;
-  for (int i = tid; i < kH1; i += kThreads) {
-    s_w1[i] = w1[i];
-    s_b1[i] = b1[i];
-  }
-  for (int i = tid; i < kH2; i += kThreads) s_b2[i] = b2[i];
-  for (int i = tid; i < S; i += kThreads) s_b3[i] = b3[i];
-  for (int i = tid; i < kH1 * kH2; i += kThreads) {
-    const int j = i / kH1, k = i % kH1;  // w2 is [H2, H1]
-    s_w2t[k][j] = bf16_round(w2[i]);
-  }
-  for (int i = tid; i < kH2 * S; i += kThreads) {
-    const int s = i / kH2, j = i % kH2;  // w3 is [S, H2]
-    s_w3t[j][s] = bf16_round(w3[i]);
-  }
+  load_mlp<S>(s_mlp, w1, b1, w2, b2, w3, b3, tid, kThreads);
 
   const long w0 = static_cast<long>(blockIdx.x) * kWords;
   const int mw = tid / kSteps;  // MLP phase: this thread's word ...
@@ -84,29 +57,9 @@ viterbinet_detect_kernel(const float* __restrict__ y, const float* __restrict__ 
   for (int t0 = 0; t0 < T; t0 += kSteps) {
     const int steps = min(kSteps, T - t0);
     __syncthreads();  // weights loaded / previous chunk's bits written out
-    if (w0 + mw < W && mc < steps) {
-      const float yv = y[(w0 + mw) * T + t0 + mc];
-      float h2[kH2];
-#pragma unroll
-      for (int j = 0; j < kH2; ++j) h2[j] = 0.0f;
-#pragma unroll 2
-      for (int k = 0; k < kH1; ++k) {
-        const float a = __fadd_rn(__fmul_rn(s_w1[k], yv), s_b1[k]);
-        const float h1 = bf16_round(1.0f / (1.0f + expf(-a)));
-#pragma unroll
-        for (int j = 0; j < kH2; ++j) h2[j] = fmaf(s_w2t[k][j], h1, h2[j]);
-      }
-#pragma unroll
-      for (int j = 0; j < kH2; ++j) h2[j] = bf16_round(fmaxf(__fadd_rn(h2[j], s_b2[j]), 0.0f));
-      float* prior = s_prior + mw * kWordStride + mc * kStepStride;
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        float acc = 0.0f;
-#pragma unroll
-        for (int j = 0; j < kH2; ++j) acc = fmaf(s_w3t[j][s], h2[j], acc);
-        prior[s] = -__fadd_rn(acc, s_b3[s]);
-      }
-    }
+    if (w0 + mw < W && mc < steps)
+      symbol_prior<S>(s_mlp, y[(w0 + mw) * T + t0 + mc],
+                      s_prior + mw * kWordStride + mc * kStepStride);
     __syncthreads();
     if (tid < kWords && w0 + tid < W) {
       const float* prior = s_prior + tid * kWordStride;

@@ -44,14 +44,27 @@ def param_dict(model: ViterbiNet) -> dict[str, torch.Tensor]:
             "b2": model.fc2.bias, "w3": model.fc3.weight, "b3": model.fc3.bias}
 
 
-def logits(params: dict[str, torch.Tensor], y: torch.Tensor) -> torch.Tensor:
-    """The forward over a parameter dict: y [words, T] -> [words, T, S], each
-    product followed by its bias add, as models/viterbinet.py::score of the
-    JAX package computes it."""
+def logits(params: dict[str, torch.Tensor], y: torch.Tensor,
+           compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The forward over a parameter dict: y [words, T] -> [words, T, S] f32,
+    each product followed by its bias add, as models/viterbinet.py::score of
+    the JAX package computes it. With `compute_dtype` (torch.bfloat16) the
+    params and y are cast to it and the products and activations run in it,
+    and the logits are returned as f32; the casts are differentiable, so
+    training and MAML take gradients through it."""
     x = y.reshape(-1, 1)
-    x = torch.sigmoid(x @ params["w1"].T + params["b1"])
-    x = torch.relu(x @ params["w2"].T + params["b2"])
-    return (x @ params["w3"].T + params["b3"]).reshape(y.shape[0], y.shape[1], -1)
+    p = params
+    if compute_dtype is None:
+        x = torch.sigmoid(x @ p["w1"].T + p["b1"])
+    else:
+        x = x.to(compute_dtype)
+        p = {k: v.to(compute_dtype) for k, v in params.items()}
+        # jax.nn.sigmoid as XLA lowers it, each op rounded to the dtype
+        # (torch.sigmoid would round once)
+        x = 1.0 / (1.0 + torch.exp(-(x @ p["w1"].T + p["b1"])))
+    x = torch.relu(x @ p["w2"].T + p["b2"])
+    out = (x @ p["w3"].T + p["b3"]).to(torch.float32)
+    return out.reshape(y.shape[0], y.shape[1], -1)
 
 
 def init_params(n_states: int, generator: torch.Generator,

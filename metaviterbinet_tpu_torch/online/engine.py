@@ -32,9 +32,9 @@ closed gate or an idle meta slot would mask. Removing that sync (masked
 updates, CUDA graphs) is later work.
 
 The self-supervised step for the meta loss (CE over states, no
-subsampling) with Adam and no clipping is ONE launch of the fused kernel
-(kernels/online_sgd.py) per gated block; any other loss or optimizer runs
-`self_supervised_iterations` autograd steps.
+subsampling) with Adam and no clipping, in f32, is ONE launch of the fused
+kernel (kernels/online_sgd.py) per gated block; any other loss, optimizer
+or compute dtype runs `self_supervised_iterations` autograd steps.
 """
 from __future__ import annotations
 
@@ -99,10 +99,13 @@ def _restore(params: dict[str, torch.Tensor], src: dict[str, torch.Tensor]) -> N
 
 def uses_fused_adaptation(cfg: Config, spec) -> bool:
     """Whether the self-supervised step is one launch of the fused kernel:
-    the meta loss (CE over states on all symbols) under Adam, unclipped."""
+    the meta loss (CE over states on all symbols) under Adam, unclipped, in
+    f32. Under Config.dtype='bfloat16' the loss is over the bf16 score, as
+    the JAX engine's is, and K6 computes an f32 one, so the autograd steps
+    run instead."""
     return (spec.trainable and spec.label_kind == "states" and not spec.subsample_loss
             and cfg.loss_type == "CrossEntropy" and cfg.optimizer_type == "Adam"
-            and not cfg.clip_grad_norm > 0)
+            and not cfg.clip_grad_norm > 0 and cfg.dtype == "float32")
 
 
 def run_online(cfg: Config, spec, params, tx_words: torch.Tensor, rx_words: torch.Tensor,

@@ -99,3 +99,40 @@ def test_online_adapt_kernel_matches_plain(gen, T):
     assert sa.count == sb.count == 40
     for k in a:
         assert float((a[k] - b[k]).abs().max()) <= 5e-6, k
+
+
+def _channel_words(W, gen):
+    """The protocol's words through the 4-tap time-decay channel at 10 dB:
+    W x 136 received samples."""
+    from metaviterbinet_tpu_torch.data.dataset import generate_words
+    return generate_words(10.0, 0.2, n_words=W, block_length=120, memory_length=4, use_ecc=True,
+                          n_symbols=2, channel_coefficients="time_decay", fading=True,
+                          fading_taps_type=1, device="cuda", word_generator=gen,
+                          noise_generator=gen)[1].contiguous()
+
+
+@pytest.mark.parametrize("W,T,C", [(300, 136, 2), (300, 136, 4), (1000, 136, 2), (13, 64, 2)])
+def test_chunked_kernel_matches_plain(gen, W, T, C):
+    model = viterbinet.init_params(16, gen, device="cuda")
+    y = torch.randn((W, T), generator=gen, device="cuda")
+    before = acs.fused_viterbinet_detect_chunked.launches
+    got = acs.fused_viterbinet_detect_chunked(model, y, C, 32)
+    assert acs.fused_viterbinet_detect_chunked.launches == before + 1
+    want = acs.fused_viterbinet_detect_chunked_plain(model, y, C, 32)
+    assert float((got != want).float().mean()) < 1e-3
+
+
+@pytest.mark.parametrize("C", [2, 4])
+def test_chunked_kernel_bit_identical_to_k1_on_channel_words(gen, tmp_path, C):
+    """Both kernels compute a symbol's priors with the same code
+    (viterbinet_mlp.cuh), and with informative priors (a network trained
+    for one minibatch; untrained random params may not do) the trellis
+    forgets its start within the 32-step warm-up on channel words: the same
+    bits as K1."""
+    from metaviterbinet_tpu_torch import Config
+    from metaviterbinet_tpu_torch.evaluation.trainer import Trainer
+    model = Trainer(Config(train_minibatch_num=1), "vnet", weights_dir=str(tmp_path),
+                    verbose=False).train()
+    y = _channel_words(300, gen)
+    assert torch.equal(acs.fused_viterbinet_detect_chunked(model, y, C, 32),
+                       acs.fused_viterbinet_detect(model, y))

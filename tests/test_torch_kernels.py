@@ -277,3 +277,135 @@ def test_k5_k6_wrappers_validate_inputs():
                                 torch.zeros(24, dtype=torch.int32), 1, 1e-3)
     # the engine's T = 136 fits one block's shared memory
     assert smem_bytes(136, 16) <= 232448 < smem_bytes(256, 16)
+
+
+# ------------------------------------------------------------------ K4
+
+def _channel_words(W, T, seed):
+    """BPSK words through the 4-tap time-decay ISI channel at 10 dB, from the
+    JAX package (as tests/test_kernels.py makes them)."""
+    from metaviterbinet_tpu.ops.channel import isi_awgn_transmit
+    from metaviterbinet_tpu.ops.modulation import bpsk_modulate
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 2, size=(W, T)).astype(np.float32)
+    h = np.tile(np.exp(-0.2 * np.arange(4)), (W, 1)).astype(np.float32)
+    padded = np.concatenate([bits, np.zeros((W, 4))], axis=1)
+    return np.asarray(isi_awgn_transmit(jnp.asarray(bpsk_modulate(padded)), jnp.asarray(h),
+                                        10.0, jax.random.PRNGKey(seed), 4)[:, :T])
+
+
+def test_fused_viterbinet_detect_chunked_matches_jax():
+    """K4's plain version (the wrapper on CPU tensors) against the JAX
+    chunked Pallas kernel in interpret mode on channel words: < 1e-3 bit
+    mismatch, K1's cross-package contract (the JAX kernel's bf16 rounding
+    on the CPU differs from the card's)."""
+    params = jvnet.init_params(jax.random.PRNGKey(0), 16)
+    model = params_from_jax({k: np.asarray(v) for k, v in params.items()}, device="cpu")
+    y = _channel_words(128, 64, 3)
+    before = tacs.fused_viterbinet_detect_chunked.launches
+    got = tacs.fused_viterbinet_detect_chunked(model, torch.tensor(y), 2, overlap=32).numpy()
+    assert tacs.fused_viterbinet_detect_chunked.launches == before
+    want = np.asarray(jacs.fused_viterbinet_detect_chunked(params, jnp.asarray(y), 2, overlap=32))
+    assert got.shape == (128, 64) and set(np.unique(got)) <= {0.0, 1.0}
+    assert np.mean(got != want) < 1e-3
+
+
+@pytest.mark.parametrize("n_chunks", [2, 4])
+def test_chunked_plain_bit_equal_to_k1_plain(n_chunks):
+    """Overlap-save with a 32-step warm-up gives K1's bits exactly on channel
+    words (tests/test_kernels.py:106-131): the same per-symbol priors, and
+    the trellis forgets its start within the warm-up. Any W: 100 words."""
+    model = tvnet.init_params(16, torch.Generator().manual_seed(3), device="cpu")
+    y = torch.tensor(_channel_words(100, 128, 5))
+    got = tacs.fused_viterbinet_detect_chunked(model, y, n_chunks, overlap=32)
+    assert torch.equal(got, tacs.fused_viterbinet_detect_plain(model, y))
+
+
+@pytest.fixture(scope="module")
+def one_minibatch_vnet(tmp_path_factory):
+    """A ViterbiNet after one training minibatch at the protocol's train size
+    (the network chip_smoke.py holds K4 against K1 with)."""
+    from metaviterbinet_tpu_torch import Config
+    from metaviterbinet_tpu_torch.evaluation.trainer import Trainer
+    return Trainer(Config(train_minibatch_num=1), "vnet", device="cpu", verbose=False,
+                   weights_dir=str(tmp_path_factory.mktemp("w"))).train()
+
+
+@pytest.mark.parametrize("n_chunks", [2, 4])
+def test_chunked_equals_k1_at_protocol_size_after_one_minibatch(one_minibatch_vnet, n_chunks):
+    """At the protocol's 300 x 136 on the 4-tap fading channel at 10 dB, K4's
+    bits equal K1's once the network has trained for one minibatch: its
+    priors make the trellis forget its start within the 32-step warm-up.
+    (With untrained random params that need not hold: a share of a few
+    thousandths of the bits may differ.)"""
+    from metaviterbinet_tpu_torch.data.dataset import generate_words
+    gen = torch.Generator().manual_seed(20260)
+    y = generate_words(10.0, 0.2, n_words=300, block_length=120, memory_length=4, use_ecc=True,
+                       n_symbols=2, channel_coefficients="time_decay", fading=True,
+                       fading_taps_type=1, device="cpu", word_generator=gen,
+                       noise_generator=gen)[1].contiguous()
+    got = tacs.fused_viterbinet_detect_chunked(one_minibatch_vnet, y, n_chunks)
+    assert torch.equal(got, tacs.fused_viterbinet_detect(one_minibatch_vnet, y))
+
+
+def test_chunked_head_warm_up_is_a_fresh_start():
+    """With overlap == Tc and C = 2, chunk 0 warms up on zeroed priors: its
+    bits equal a decode of chunk 0 alone."""
+    model = tvnet.init_params(16, torch.Generator().manual_seed(4), device="cpu")
+    y = torch.randn((6, 40), generator=torch.Generator().manual_seed(5))
+    got = tacs.fused_viterbinet_detect_chunked(model, y, 2, overlap=20)
+    assert torch.equal(got[:, :20], tacs.fused_viterbinet_detect_plain(model, y[:, :20].contiguous()))
+
+
+def test_chunked_wrapper_validates_inputs():
+    """The validation errors of tests/test_kernels.py:134-142, and K1's checks."""
+    model = tvnet.ViterbiNet(16, device="cpu")
+    with pytest.raises(ValueError, match="chunks"):
+        tacs.fused_viterbinet_detect_chunked(model, torch.zeros((128, 50)), 4)
+    with pytest.raises(ValueError, match="overlap"):
+        tacs.fused_viterbinet_detect_chunked(model, torch.zeros((128, 128)), 8, overlap=32)
+    with pytest.raises(ValueError, match="overlap"):
+        tacs.fused_viterbinet_detect_chunked(model, torch.zeros((128, 128)), 2, overlap=0)
+    with pytest.raises(ValueError, match="1-100-50-S"):
+        tacs.fused_viterbinet_detect_chunked(tvnet.ViterbiNet(6, device="cpu"),
+                                             torch.zeros((4, 64)), 2)
+    with pytest.raises(ValueError, match="float32"):
+        tacs.fused_viterbinet_detect_chunked(model, torch.zeros((4, 64), dtype=torch.float64), 2)
+    with pytest.raises(ValueError, match="params on"):
+        tacs.fused_viterbinet_detect_chunked(model, torch.zeros((4, 64), device="meta"), 2)
+
+
+def test_with_time_chunks_matches_unchunked_detect(monkeypatch):
+    """Config.eval_time_chunks routes the batch detect through K4 and gives
+    the unchunked detect's bits (tests/test_kernels.py:145-161), with W = 100;
+    T = 50 does not divide into 4 chunks and takes K1."""
+    from metaviterbinet_tpu_torch.detectors import with_time_chunks
+    calls = []
+    plain = tacs.fused_viterbinet_detect_chunked_plain
+    monkeypatch.setattr(tacs, "fused_viterbinet_detect_chunked_plain",
+                        lambda *a, **k: calls.append(a[2]) or plain(*a, **k))
+    model = tvnet.init_params(16, torch.Generator().manual_seed(6), device="cpu")
+    chunked = with_time_chunks(DETECTORS["vnet"], 4, overlap=32, memory_length=4)
+    y = torch.tensor(_channel_words(100, 128, 9))
+    np.testing.assert_array_equal(chunked.detect(model, y, None).numpy(),
+                                  DETECTORS["vnet"].detect(model, y, None).numpy())
+    assert calls == [4]
+    y2 = torch.randn((100, 50), generator=torch.Generator().manual_seed(7))
+    assert torch.equal(chunked.detect(model, y2, None), tacs.fused_viterbinet_detect_plain(model, y2))
+    assert calls == [4]
+    # chunks shorter than the overlap take K1 too
+    y3 = torch.randn((10, 136), generator=torch.Generator().manual_seed(8))
+    eight = with_time_chunks(DETECTORS["meta_vnet"], 8, overlap=32, memory_length=4)
+    assert torch.equal(eight.detect(model, y3, None), tacs.fused_viterbinet_detect_plain(model, y3))
+    assert calls == [4]
+    assert with_time_chunks(DETECTORS["va"], 4) is DETECTORS["va"]
+    assert with_time_chunks(DETECTORS["vnet"], 1) is DETECTORS["vnet"]
+
+
+def test_with_time_chunks_warns_below_the_forgetting_depth():
+    """An overlap below 8 * memory_length warns, as the JAX package does, and
+    keeps the unchunked kernel."""
+    from metaviterbinet_tpu_torch.detectors import with_time_chunks
+    with pytest.warns(UserWarning, match="trellis forgetting depth"):
+        spec = with_time_chunks(DETECTORS["vnet"], 4, overlap=16, memory_length=4)
+    assert spec is DETECTORS["vnet"]

@@ -22,6 +22,7 @@ import torch
 from metaviterbinet_tpu import config as jconfig
 from metaviterbinet_tpu.data.dataset import ChannelDataset as JChannelDataset
 from metaviterbinet_tpu.detectors import DETECTORS as JDETECTORS
+from metaviterbinet_tpu.detectors import with_compute_dtype as j_with_compute_dtype
 from metaviterbinet_tpu.ecc.rs import rs_encode_bits as j_rs_encode_bits
 from metaviterbinet_tpu.models import viterbinet as jvnet
 from metaviterbinet_tpu.online.engine import make_online_engine
@@ -29,7 +30,7 @@ from metaviterbinet_tpu.ops.channel import estimate_channel_batch as j_taps
 from metaviterbinet_tpu.train.losses import make_loss_fn as j_make_loss_fn
 from metaviterbinet_tpu.train.losses import select_batch as j_select_batch
 from metaviterbinet_tpu_torch import Config
-from metaviterbinet_tpu_torch.detectors import DETECTORS
+from metaviterbinet_tpu_torch.detectors import DETECTORS, with_compute_dtype
 from metaviterbinet_tpu_torch.evaluation.trainer import Trainer
 from metaviterbinet_tpu_torch.online.engine import Draws, run_online, uses_fused_adaptation
 from metaviterbinet_tpu_torch.weights import params_from_jax, params_to_numpy
@@ -80,7 +81,8 @@ class JaxDraws(Draws):
 def _run_both(name, snr=10.0, init_buffer=False, meta_init=False, **kw):
     kw = dict(TINY, **kw)
     jcfg, tx, rx, h = _inputs(kw, snr)
-    jspec, spec = JDETECTORS[name], DETECTORS[name]
+    jspec = j_with_compute_dtype(JDETECTORS[name], jcfg.dtype)
+    spec = with_compute_dtype(DETECTORS[name], jcfg.dtype)
     loss_fn = init_fn = None
     params = None
     if jspec.trainable:
@@ -155,6 +157,27 @@ def test_meta_vnet_meta_engine_matches_jax(weights_init, init_buffer):
     _assert_params_close(want.params, got.params)
 
 
+def test_meta_vnet_engine_under_bf16_matches_jax(monkeypatch):
+    """Config.dtype='bfloat16': the engine detects through the bf16 forward
+    and K5, and self-supervises by autograd steps over the bf16 score (not
+    K6, whose loss is f32), as the JAX engine with with_compute_dtype does.
+    SER per block equal; params within 5e-4, half of one Adam step (lr
+    1e-3): bf16 keeps 3 significant digits, the two frameworks round some
+    products apart, and Adam scales an update by the gradient's own history,
+    so a rounding difference in a small gradient component moves its
+    parameter by a fraction of lr."""
+    import metaviterbinet_tpu_torch.online.engine as engine
+    monkeypatch.setattr(engine, "online_adapt_viterbinet",
+                        lambda *a, **k: pytest.fail("K6 ran under bf16"))
+    want, got, _ = _run_both("meta_vnet", self_supervised=True, online_meta=True,
+                             ser_thresh=1.0, dtype="bfloat16", buffer_capacity=32)
+    np.testing.assert_array_equal(got.ser_by_word, np.asarray(want.ser_by_word))
+    assert got.n_buffer == int(want.n_buffer) and got.n_gated == 10
+    got_p = params_to_numpy(got.params)
+    for k, v in want.params.items():
+        np.testing.assert_allclose(got_p[k], np.asarray(v), atol=5e-4, rtol=0, err_msg=k)
+
+
 def test_first_order_meta_without_self_supervision_matches_jax():
     want, got, _ = _run_both("meta_vnet", online_meta=True, MAML=False, ser_thresh=1.0)
     np.testing.assert_array_equal(got.ser_by_word, np.asarray(want.ser_by_word))
@@ -180,7 +203,8 @@ def test_fused_step_only_for_the_meta_loss_under_adam():
     assert uses_fused_adaptation(cfg, DETECTORS["meta_vnet"])
     assert not uses_fused_adaptation(cfg, DETECTORS["vnet"])       # subsampled loss
     assert not uses_fused_adaptation(cfg, DETECTORS["va"])
-    for kw in (dict(optimizer_type="RMSprop"), dict(loss_type="MSE"), dict(clip_grad_norm=1.0)):
+    for kw in (dict(optimizer_type="RMSprop"), dict(loss_type="MSE"), dict(clip_grad_norm=1.0),
+               dict(dtype="bfloat16")):
         assert not uses_fused_adaptation(cfg.replace(**kw), DETECTORS["meta_vnet"])
 
 

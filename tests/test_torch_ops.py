@@ -51,11 +51,22 @@ def test_config_yaml_layering():
     assert (cfg.val_SNR_start, cfg.use_ecc, cfg.memory_length) == (7.0, False, 4)
 
 
-@pytest.mark.parametrize("field,value", [
-    ("mesh_shape", (8,)), ("eval_time_chunks", 4), ("dtype", "bfloat16")])
+@pytest.mark.parametrize("field,value", [("mesh_shape", (8,))])
 def test_config_unported_mechanisms_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
         tconfig.Config(**{field: value})
+
+
+@pytest.mark.parametrize("field,value", [("eval_time_chunks", 4), ("dtype", "bfloat16")])
+def test_config_accepts_time_chunks_and_bf16(field, value):
+    assert getattr(tconfig.Config(**{field: value}), field) == value
+
+
+def test_config_rejects_unknown_dtypes_and_negative_chunks():
+    with pytest.raises(ValueError, match="dtype"):
+        tconfig.Config(dtype="float16")
+    with pytest.raises(ValueError, match="eval_time_chunks"):
+        tconfig.Config(eval_time_chunks=-1)
 
 
 @pytest.mark.parametrize("field,value", [

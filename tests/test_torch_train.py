@@ -286,3 +286,51 @@ def test_vnet_training_pulls_below_chance(tmp_path):
 def test_training_a_parameterless_detector_raises(tmp_path):
     with pytest.raises(NotImplementedError):
         Trainer(Config(**TINY), "va", device="cpu", weights_dir=str(tmp_path)).train()
+
+
+# ------------------------------------------------------------------ bf16
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bf16_forward_matches_jax(seed):
+    """Config.dtype='bfloat16': the port's bf16 forward against JAX
+    viterbinet.score(..., compute_dtype=bfloat16). Both round each product,
+    bias add and sigmoid op to bf16, so the logits agree to within one bf16
+    ulp at their magnitude (2**-9 here, |logits| < 0.5) on at most 0.1% of
+    entries, and the decoded bits to < 1e-3."""
+    from metaviterbinet_tpu_torch.ops.trellis import viterbi_decode
+    jp = _jparams(seed)
+    _, tp = _tparams(jp)
+    y, _ = _words(128, 40, seed + 2)
+    want = np.asarray(jvnet.score(jp, jnp.asarray(y), compute_dtype=jnp.bfloat16))
+    got = tvnet.logits(tp, torch.tensor(y), torch.bfloat16)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    diff = np.abs(got.detach().numpy() - want)
+    assert diff.max() <= 2.0 ** -9 and np.mean(diff > 0) <= 1e-3
+    bits = viterbi_decode(-got.detach()).numpy()
+    assert np.mean(bits != np.asarray(jvnet.detect(jp, jnp.asarray(y), compute_dtype=jnp.bfloat16))) < 1e-3
+    # and it is not the f32 forward
+    assert not torch.equal(got, tvnet.logits(tp, torch.tensor(y)))
+
+
+def test_bf16_loss_gradients_match_jax():
+    """The bf16 forward is differentiable: CE over states through it gives
+    JAX's gradient of its bf16 loss within 3% of each tensor's largest
+    entry. The two backward passes round their bf16 products in different
+    places: bf16 keeps 8 bits (0.4%), and the errors add over the 48
+    symbols."""
+    from metaviterbinet_tpu_torch.detectors import DETECTORS, with_compute_dtype
+    from metaviterbinet_tpu.detectors import DETECTORS as JDETECTORS
+    from metaviterbinet_tpu.detectors import with_compute_dtype as j_with_compute_dtype
+    jp = _jparams(3)
+    _, tp = _tparams(jp)
+    rx, tx = _words(2, 24, 4)
+    jspec = j_with_compute_dtype(JDETECTORS["meta_vnet"], "bfloat16")
+    spec = with_compute_dtype(DETECTORS["meta_vnet"], "bfloat16")
+    want = jax.grad(j_make_loss_fn(jspec.score, "states", L, False, 8))(
+        jp, jnp.asarray(rx), jnp.asarray(tx))
+    loss = make_loss_fn(spec.score, "states", L, False)(tp, torch.tensor(rx), torch.tensor(tx))
+    grads = dict(zip(tp, torch.autograd.grad(loss, list(tp.values()))))
+    for k, g in grads.items():
+        assert g.dtype == torch.float32
+        w = np.asarray(want[k])
+        assert np.abs(g.numpy() - w).max() <= 3e-2 * np.abs(w).max(), k
