@@ -18,7 +18,8 @@ Phases, each of which fails the run on error:
               at the engine's 1 x 136, 300 x 136 and 4096 x 41; K6 (fused
               online Adam) at T = 136 from the same params and moments: 40
               steps, a resumed second call of 40, and the protocol's 200
-              steps on nine received words;
+              steps on nine received words; and two K6 launches from the same
+              inputs, bit-identical;
   4. slice    the aggregated coded-BER eval at the protocol's full width
               (300 words x 136 symbols, RS nsym=2, 4-tap time-decay fading
               channel), each path's launch counts zeroed just before and read
@@ -55,7 +56,9 @@ Phases, each of which fails the run on error:
               graph of back-to-back calls) and per eager call: K1 and K2 at
               300 x 136 and 65536 x 136, K4 at 300 x 136 with 2 and 4 chunks
               and 65536 x 136 with 4, K5 at 1 x 136 and 300 x 136, K6 at
-              T = 136 with 200 steps;
+              T = 136 with 200 steps (with its cluster size, its bound at
+              the cluster's share of the card and at one SM's, and its time
+              per step);
   9. report   a `{"kernels": [...]}` line, then the card line, then
               `{"ok": true, "device": {...}}` as the last line.
 
@@ -476,6 +479,17 @@ def phase_kernels(model: viterbinet.ViterbiNet, trained: viterbinet.ViterbiNet,
         errs[label] = _max_diff(pk, pp)
     if (sk.count, sp.count) != (80, 80):
         fail(f"online_adapt_viterbinet: step counts {sk.count}, {sp.count}")
+    # two launches from the same inputs give the same bits: the cluster sums
+    # its partial gradients in a fixed order, with no atomics
+    (pa, sa), (pb, sb) = _copy_state(params, state), _copy_state(params, state)
+    for p, s in ((pa, sa), (pb, sb)):
+        online_sgd.online_adapt_viterbinet(p, s, y, states, 40, 1e-3)
+    same = all(torch.equal(a[k], b[k]) for a, b in ((pa, pb), (sa.mu, sb.mu), (sa.nu, sb.nu))
+               for k in pa)
+    print(f"online_adapt_viterbinet T={T_PROTO}: two launches from the same inputs "
+          f"bit-identical {same}")
+    if not same:
+        fail("online_adapt_viterbinet: two launches from the same inputs differ")
     # the protocol's 200 steps on each of words 1..9: Adam on one word
     # amplifies rounding differences once its fit saturates, so how far two
     # f32 summation orders drift apart depends on the word; the median over
@@ -946,9 +960,13 @@ def phase_width(model: viterbinet.ViterbiNet, gen: torch.Generator, card: str) -
            lambda: online_sgd.online_adapt_viterbinet_plain(params, state, y, states, K6_ITERS,
                                                             1e-3, ADAM_B1, ADAM_B2, ADAM_EPS),
            bound, per_graph=2, plain_per_graph=1)
+    cluster = online_sgd.CLUSTER_SIZE
+    k6 = times[("online_adapt_viterbinet", 1)]
     print(f"online_adapt_viterbinet: {adapt_ops(T_PROTO, 16, K6_ITERS):.4e} f32 operations for "
           f"{K6_ITERS} steps at T={T_PROTO}; bound {bound[0]:.5f} ms at the card's f32 rate, "
-          f"{bound[0] * N_SMS:.4f} ms at one SM's share of it (one thread block)")
+          f"{bound[0] * N_SMS / cluster:.4f} ms at the share of its cluster of {cluster} CTAs, "
+          f"{bound[0] * N_SMS:.4f} ms at one SM's share; {1e3 * k6['ms'] / K6_ITERS:.3f} us per "
+          f"step on the device [{card}]")
     return times
 
 
@@ -1028,7 +1046,10 @@ def kernel_rows(checks: dict, sl: dict, online: dict, times: dict) -> list:
         "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": None, "shape": [T_PROTO, K6_ITERS],
         "call_ms": row["call_ms"], "plain_call_ms": row["plain_call_ms"],
+        "cluster_size": online_sgd.CLUSTER_SIZE,
+        "cluster_bound_ms": row["bound_ms"] * N_SMS / online_sgd.CLUSTER_SIZE,
         "one_sm_bound_ms": row["bound_ms"] * N_SMS,
+        "us_per_step": 1e3 * row["ms"] / K6_ITERS,
         "checked": checks[(name, 1, T_PROTO)]["by_check"],
         "drift": checks[(name, 1, T_PROTO)]["drift"],
     })

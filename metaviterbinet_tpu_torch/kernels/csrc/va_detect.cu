@@ -65,7 +65,7 @@ va_detect_kernel(const float* __restrict__ y, const float* __restrict__ mu,
           const float d = __fsub_rn(yt, mean[s]);
           p[s] = __fsub_rn(__fmul_rn(__fmul_rn(d, d), 0.5f), kLogSqrt2Pi);
         }
-        tile[lane][c] = acs_step<S>(m, p);
+        tile[lane][c] = acs_step_linear<S>(m, p);
       }
     }
     __syncthreads();

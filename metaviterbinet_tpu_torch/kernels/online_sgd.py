@@ -3,9 +3,11 @@
 `online_adapt_viterbinet` (csrc/online_adapt.cu) replaces the Pallas kernel
 metaviterbinet_tpu/kernels/online_sgd.py::online_adapt_viterbinet: n Adam
 steps of cross-entropy over the trellis states of one word, all T symbols,
-mean reduction, in one launch. It is the self-supervised step of the online
-engine for the meta loss (online/engine.py), which otherwise costs n eager
-forward + backward + Adam steps of dozens of small launches each.
+mean reduction, in one launch of a cluster of CLUSTER_SIZE thread blocks
+that split the word's symbols between them. It is the self-supervised step
+of the online engine for the meta loss (online/engine.py), which otherwise
+costs n eager forward + backward + Adam steps of dozens of small launches
+each.
 
 The wrapper updates the parameters, the Adam moments and the step count of
 its arguments IN PLACE, on the card through the kernel and on the CPU
@@ -25,13 +27,30 @@ from metaviterbinet_tpu_torch.kernels.acs import (
     SUPPORTED_STATES, _check_f32, _check_launch, _library, _route)
 from metaviterbinet_tpu_torch.models.viterbinet import HIDDEN1, HIDDEN2, PARAM_NAMES
 
-MAX_SMEM_BYTES = 232448  # shared memory one block may use on an H100
+MAX_SMEM_BYTES = 232448  # shared memory one CTA may use on an H100
+# CTAs of the kernel's thread-block cluster, fixed in csrc/online_adapt.cu
+# (kCluster): 16, the largest an H100 allows, measured faster than the
+# portable 8 (PERF.md)
+CLUSTER_SIZE = 16
+
+
+def _n_params(S: int) -> int:
+    return HIDDEN1 * 2 + HIDDEN2 * (HIDDEN1 + 1) + S * (HIDDEN2 + 1)
+
+
+def _align4(n: int) -> int:
+    return (n + 3) // 4 * 4
 
 
 def smem_bytes(T: int, S: int) -> int:
-    """Shared memory of one launch (csrc/online_adapt.cu::smem_floats)."""
-    n_params = HIDDEN1 * 2 + HIDDEN2 * (HIDDEN1 + 1) + S * (HIDDEN2 + 1)
-    return 4 * (2 * n_params + 2 * T + (HIDDEN1 + 2 * HIDDEN2 + S) * (T | 1))
+    """Shared memory of one CTA of the cluster, which holds
+    ceil(T / CLUSTER_SIZE) of the word's columns (csrc/online_adapt.cu::Smem):
+    the parameters and their partial gradient (each padded to a multiple of
+    4), y and the labels, and per column h1 [100], h2 and dz2 [52 each] and
+    the logits [S + 1]."""
+    cols = -(-T // CLUSTER_SIZE)
+    return 4 * (2 * _align4(_n_params(S)) + 2 * _align4(cols)
+                + cols * (HIDDEN1 + 2 * 52 + S + 1))
 
 
 def _start_powers(b1: float, b2: float, count: int) -> tuple[np.float32, np.float32]:
@@ -122,16 +141,17 @@ def online_adapt_viterbinet(params: dict[str, torch.Tensor], opt_state, y: torch
         online_adapt_viterbinet_plain(params, opt_state, y, states, n_iters, lr, b1, b2, eps)
         return
     if smem_bytes(T, S) > MAX_SMEM_BYTES:
-        raise ValueError(f"{name}: T={T} needs {smem_bytes(T, S)} bytes of shared memory, "
-                         f"more than a block has ({MAX_SMEM_BYTES})")
+        raise ValueError(f"{name}: T={T} needs {smem_bytes(T, S)} bytes of shared memory per "
+                         f"CTA of a {CLUSTER_SIZE}-CTA cluster, more than a CTA has "
+                         f"({MAX_SMEM_BYTES})")
     pow1, pow2 = _start_powers(b1, b2, opt_state.count)
     lib = _library("online_adapt")
     ptrs = [t.data_ptr() for group in (params, opt_state.mu, opt_state.nu)
             for t in (group[k] for k in PARAM_NAMES)]
     with torch.cuda.device(y.device):
         rc = lib.online_adapt(
-            y.data_ptr(), states.data_ptr(), *ptrs, T, S, n_iters, lr, b1, b2, 1.0 - b1,
-            1.0 - b2, eps, 1.0 / T, float(pow1), float(pow2),
+            y.data_ptr(), states.data_ptr(), *ptrs, T, S, n_iters,
+            lr, b1, b2, 1.0 - b1, 1.0 - b2, eps, 1.0 / T, float(pow1), float(pow2),
             torch.cuda.current_stream(y.device).cuda_stream)
     _check_launch(name, rc)
     opt_state.count += n_iters

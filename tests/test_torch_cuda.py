@@ -59,7 +59,7 @@ def test_kernels_break_exact_ties_toward_state_zero(gen):
 
 
 @pytest.mark.parametrize("S", [2, 4, 8, 16])
-@pytest.mark.parametrize("W,T", [(1, 136), (300, 136), (4096, 41), (33, 7)])
+@pytest.mark.parametrize("W,T", [(1, 136), (300, 136), (4096, 41), (33, 7), (1, 1000)])
 def test_decode_kernel_bit_identical_to_plain(gen, S, W, T):
     priors = torch.randn((W, T, S), generator=gen, device="cuda")
     before = acs.viterbi_decode_kernel.launches
@@ -80,18 +80,24 @@ def test_decode_kernel_breaks_exact_ties_toward_state_zero(gen):
     assert bool((got[:, 1] == 1.0).all())
 
 
-@pytest.mark.parametrize("T", [136, 41])
-def test_online_adapt_kernel_matches_plain(gen, T):
-    """40 fused Adam steps from the same params and zero moments: within
-    5e-6 of the plain version (the JAX kernel's contract)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    model = viterbinet.init_params(16, gen, device="cuda")
+def _adapt_inputs(gen, S, T):
+    model = viterbinet.init_params(S, gen, device="cuda")
     y = torch.randn(T, generator=gen, device="cuda")
-    states = calculate_states(4, torch.randint(0, 2, (1, T), generator=gen, device="cuda").float())
+    bits = torch.randint(0, 2, (1, T), generator=gen, device="cuda").float()
+    states = calculate_states(S.bit_length() - 1, bits)
     a = {k: v.detach().clone() for k, v in viterbinet.param_dict(model).items()}
     b = {k: v.detach().clone() for k, v in a.items()}
     opt = Optimizer("Adam", 1e-3)
-    sa, sb = opt.init(a), opt.init(b)
+    return y, states, (a, opt.init(a)), (b, opt.init(b))
+
+
+@pytest.mark.parametrize("S,T", [(16, 136), (16, 41), (16, 5), (16, 1000), (2, 136), (2, 41)])
+def test_online_adapt_kernel_matches_plain(gen, S, T):
+    """40 fused Adam steps from the same params and zero moments: within
+    5e-6 of the plain version (the JAX kernel's contract). T = 5 leaves CTAs
+    of the 16-CTA cluster without columns; T = 1000 gives each 63."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    y, states, (a, sa), (b, sb) = _adapt_inputs(gen, S, T)
     before = online_sgd.online_adapt_viterbinet.launches
     online_sgd.online_adapt_viterbinet(a, sa, y, states, 40, 1e-3)
     assert online_sgd.online_adapt_viterbinet.launches == before + 1
@@ -99,6 +105,18 @@ def test_online_adapt_kernel_matches_plain(gen, T):
     assert sa.count == sb.count == 40
     for k in a:
         assert float((a[k] - b[k]).abs().max()) <= 5e-6, k
+
+
+def test_online_adapt_kernel_is_deterministic(gen):
+    """Two launches from the same inputs give the same bits in the params
+    and both moments: the cluster sums its partial gradients in rank order,
+    with no atomics."""
+    y, states, (a, sa), (b, sb) = _adapt_inputs(gen, 16, 136)
+    for p, s in ((a, sa), (b, sb)):
+        online_sgd.online_adapt_viterbinet(p, s, y, states, 40, 1e-3)
+    for k in a:
+        assert torch.equal(a[k], b[k]) and torch.equal(sa.mu[k], sb.mu[k]), k
+        assert torch.equal(sa.nu[k], sb.nu[k]), k
 
 
 def _channel_words(W, gen):

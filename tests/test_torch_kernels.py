@@ -275,8 +275,11 @@ def test_k5_k6_wrappers_validate_inputs():
     with pytest.raises(ValueError, match="1-100-50-S"):
         online_adapt_viterbinet(small, Optimizer("Adam", 1e-3).init(small), y,
                                 torch.zeros(24, dtype=torch.int32), 1, 1e-3)
-    # the engine's T = 136 fits one block's shared memory
-    assert smem_bytes(136, 16) <= 232448 < smem_bytes(256, 16)
+    # per CTA of the 16-CTA cluster, which holds ceil(T / 16) columns: the
+    # engine's T = 136 and T = 1000 fit a CTA's shared memory, T = 3297 (207
+    # columns) is the first that does not
+    assert smem_bytes(136, 16) <= smem_bytes(1000, 16) <= smem_bytes(3296, 16) <= 232448
+    assert smem_bytes(3297, 16) > 232448
 
 
 # ------------------------------------------------------------------ K4
