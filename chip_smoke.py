@@ -10,7 +10,10 @@ Phases, each of which fails the run on error:
   3. kernels  hold each kernel against its plain PyTorch version on the card:
               K1 (ViterbiNet detect, < 1e-3 bit mismatch) and K2 (VA detect,
               bit-identical) at 4096 and 1000 words x 136 and 41 steps and at
-              the aggregated path's 300 x 136; K4 (K1 over overlap-save time
+              the aggregated path's 300 x 136, K2 at the VA engine's 1 x 136,
+              both at S = 2, 4, 8, 16 at 300 x 136 with two launches from the
+              same inputs bit-identical, and one tensor-core tile of K1's
+              priors against the plain version's; K4 (K1 over overlap-save time
               chunks, overlap 32, < 1e-3) at 300 x 136 with 2 and 4 chunks,
               4096 x 136 with 4 and 1000 x 136 with 2, and bit-identical to
               K1 (trained params) on channel words at 300 x 136 with 2 and 4
@@ -37,8 +40,9 @@ Phases, each of which fails the run on error:
               blocks on the type-2 test channel at 10 dB, in a temporary
               weights directory so that the checkpoint is trained on the
               miss: meta_vnet in meta mode (meta_train, then MAML every 5
-              blocks and K6 on every gated block) and vnet in joint mode
-              (train, then detection only), each against its recorded
+              blocks and K6 on every gated block), vnet in joint mode
+              (train, then detection only) and va in joint mode (K2 per
+              block, nothing trained), each against its recorded
               reference band; launch counts, buffer fill, seconds of
               train-on-miss, of the 300 blocks and of their parts (CUDA
               events), and the device's idle share over 300 blocks
@@ -54,8 +58,9 @@ Phases, each of which fails the run on error:
               on the card against the CPU, one bf16 word sweep, and no K6;
   8. width    time the kernels and their plain versions on the device (a CUDA
               graph of back-to-back calls) and per eager call: K1 and K2 at
-              300 x 136 and 65536 x 136, K4 at 300 x 136 with 2 and 4 chunks
-              and 65536 x 136 with 4, K5 at 1 x 136 and 300 x 136, K6 at
+              300 x 136 and 65536 x 136, K2 at 1 x 136, K4 at 300 x 136 with
+              2 and 4 chunks and 65536 x 136 with 4, K5 at 1 x 136 and
+              300 x 136, K6 at
               T = 136 with 200 steps (with its cluster size, its bound at
               the cluster's share of the card and at one SM's, and its time
               per step);
@@ -105,12 +110,23 @@ VA_BAND = (0.014036, 0.006)  # resources/reference_baselines.json va_full_csi co
 # mean of the reference's two seeds, with tests/test_parity_anchor.py's band
 META_VNET_BAND = (0.028588, 0.012)
 VNET_JOINT_BAND = (0.031814, 0.012)
+# va_joint: the VA trains nothing, so only the binomial noise of the 288
+# data blocks' bits is in it; the VA's band of VA_BAND
+VA_JOINT_BAND = (0.014149, 0.006)
 WIDE_W, PROTO_W, T_PROTO = 65536, 300, 136
 K6_ITERS = 200  # Config.self_supervised_iterations, the protocol's
 # K6 against its plain version: the JAX kernel's contract (5e-6 after 40
 # steps, 2e-5 after resuming for 40 more) and the limit for 200 steps
 K6_LIMITS = {"40 steps": 5e-6, "resumed 40 + 40": 2e-5, "200 steps": 1e-4}
 K6_WORDS = tuple(range(1, 10))  # data blocks of adapt_inputs' 10 dB batch
+# K6's float64 witness (tests/test_torch_cuda.py, scripts/torch_kernel_probe.py):
+# after 40 + 40 steps on each (T, seed) word, the kernel's distance from a
+# float64 run of the plain version's arithmetic is held within
+# K6_WITNESS_MULTIPLE times the f32 plain version's distance plus
+# K6_WITNESS_FLOOR, as tests/test_torch_kernels.py holds the f32 plain
+# version to the JAX kernel's distance on the CPU
+K6_WITNESS_WORDS = ((40, 0), (40, 1), (33, 2), (40, 3), (40, 4), (136, 0), (64, 5))
+K6_WITNESS_MULTIPLE, K6_WITNESS_FLOOR = 4.0, 1e-6
 CARD_CPU_BLOCKS = 25
 # card against CPU over the first 25 meta-mode blocks: each block's SER
 # within two of its 120 bits, the mean over the data blocks within 2e-3
@@ -365,6 +381,44 @@ def adapt_inputs(word: int = 1):
     return params, rx[word].contiguous().cuda(), states.cuda()
 
 
+def k6_witness_word(T: int, seed: int, device: str = "cuda"):
+    """A K6 input made on the CPU from `seed`: the port's init_params from a
+    torch generator, y ~ N(0, 1) and random bits' trellis states from numpy;
+    moved to `device`. Returns (params, y, states)."""
+    model = viterbinet.init_params(16, torch.Generator().manual_seed(seed), device="cpu")
+    rng = np.random.default_rng(seed)
+    y = torch.tensor(rng.normal(size=T).astype(np.float32))
+    bits = torch.tensor(rng.integers(0, 2, size=(1, T)).astype(np.float32))
+    params = {k: v.detach().to(device) for k, v in viterbinet.param_dict(model).items()}
+    return params, y.to(device), calculate_states(4, bits).to(device)
+
+
+def k6_witness(params: dict, y, states, steps=(40, 40)) -> dict:
+    """K6, its f32 plain version and a float64 run of the plain version's
+    arithmetic from the same params and zero moments, called once per entry
+    of `steps`; returns max |dparam| between each pair after the last call."""
+    opt = Optimizer("Adam", 1e-3)
+    runs = {}
+    for name, dtype in (("kernel", torch.float32), ("plain", torch.float32), ("f64", torch.float64)):
+        p = {k: v.detach().to(dtype=dtype, copy=True) for k, v in params.items()}
+        runs[name] = (p, opt.init(p))
+    for n in steps:
+        online_sgd.online_adapt_viterbinet(*runs["kernel"], y, states, n, 1e-3)
+        online_sgd.online_adapt_viterbinet_plain(*runs["plain"], y, states, n, 1e-3)
+        online_sgd.online_adapt_viterbinet_plain(*runs["f64"], y.double(), states, n, 1e-3)
+
+    def dist(a, b):
+        return max(float((runs[a][0][k].double() - runs[b][0][k].double()).abs().max())
+                   for k in params)
+
+    return {"kernel_f64": dist("kernel", "f64"), "plain_f64": dist("plain", "f64"),
+            "kernel_plain": dist("kernel", "plain")}
+
+
+def witness_holds(d: dict) -> bool:
+    return d["kernel_f64"] <= K6_WITNESS_MULTIPLE * d["plain_f64"] + K6_WITNESS_FLOOR
+
+
 def _copy_state(params: dict, state):
     p = {k: v.clone() for k, v in params.items()}
     s = copy.copy(state)
@@ -397,6 +451,10 @@ CHUNKED_CHECK_SHAPES = ((PROTO_W, T_PROTO, 2), (PROTO_W, T_PROTO, 4), (4096, T_P
                         (1000, T_PROTO, 2))
 CHUNKS_EQUAL_TO_K1 = (2, 4)
 DECODE_CHECK_SHAPES = ((1, T_PROTO), (PROTO_W, T_PROTO), (4096, 41))
+STATES = (2, 4, 8, 16)
+# one tensor-core tile of K1's priors against the plain version's (see
+# tests/test_torch_cuda.py::TILE_TOL)
+TILE_TOL = 5e-3
 
 
 def check_bits(name: str, W: int, T: int, got, want, limit: float,
@@ -449,6 +507,35 @@ def phase_kernels(model: viterbinet.ViterbiNet, trained: viterbinet.ViterbiNet,
         checks[("fused_viterbinet_detect", W, T)] = check_bits(
             "fused_viterbinet_detect", W, T, acs.fused_viterbinet_detect(model, y),
             acs.fused_viterbinet_detect_plain(model, y), 1e-3)
+    # K2 at the VA engine's one word per block
+    y, mu = kernel_inputs(1, T_PROTO, gen)
+    checks[("fused_va_detect", 1, T_PROTO)] = check_bits(
+        "fused_va_detect", 1, T_PROTO, acs.fused_va_detect(y, mu),
+        acs.fused_va_detect_plain(y, mu), 0.0)
+    # K1 and K2 at every S at the protocol's shape, two launches of each
+    # bit-identical (the ring's hand-off), and one tensor-core tile of K1's
+    # priors against the plain version's
+    for S in STATES:
+        net = viterbinet.init_params(S, gen, device="cuda")
+        y, mu = kernel_inputs(PROTO_W, T_PROTO, gen, S)
+        for name, run, plain, limit in (
+                ("fused_va_detect", lambda: acs.fused_va_detect(y, mu),
+                 lambda: acs.fused_va_detect_plain(y, mu), 0.0),
+                ("fused_viterbinet_detect", lambda: acs.fused_viterbinet_detect(net, y),
+                 lambda: acs.fused_viterbinet_detect_plain(net, y), 1e-3)):
+            got = run()
+            checks[(name, "S", S)] = check_bits(f"{name} S={S}", PROTO_W, T_PROTO, got, plain(),
+                                                limit)
+            check_bits(f"{name} S={S}", PROTO_W, T_PROTO, run(), got, 0.0,
+                       against="a second launch from the same inputs")
+        y64 = 2 * torch.randn(64, generator=gen, device="cuda")
+        tile = acs.viterbinet_tile_priors(net, y64)
+        tile_err = float((tile - acs._bf16_priors(net, y64[None]).reshape(64, S)).abs().max())
+        print(f"viterbinet_tile_priors S={S}: one tensor-core tile's priors max |diff| "
+              f"{tile_err:.3e} vs the plain version (limit {TILE_TOL:g})")
+        if not tile_err <= TILE_TOL:
+            fail(f"viterbinet_tile_priors S={S}: {tile_err} against the plain version")
+        checks[("tile", S)] = tile_err
     name = "fused_viterbinet_detect_chunked"
     for W, T, C in CHUNKED_CHECK_SHAPES:
         y = kernel_inputs(W, T, gen)[0]
@@ -703,12 +790,15 @@ def run_by_word(name: str, mode: str, weights_dir: str, band: tuple) -> dict:
     cfg = online_cfg(mode, weights_dir)
     di = cfg.data_indices("val")
     trainer = Trainer(cfg, name, verbose=False)
+    trainable = trainer.spec.trainable
     # the user path is trainer.evaluate(), whose first step is this load;
-    # on the miss it trains, so its time and launches are read apart
+    # on the miss it trains, so its time and launches are read apart (the
+    # VA loads nothing)
     zero_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    trainer.load_weights(10.0, cfg.gamma)
+    if trainable:
+        trainer.load_weights(10.0, cfg.gamma)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     train_launches = read_launches()
@@ -736,17 +826,19 @@ def run_by_word(name: str, mode: str, weights_dir: str, band: tuple) -> dict:
         fail(f"{name} {mode}: SER per block is not 300 finite values")
     if abs(mean_ber - band[0]) > band[1]:
         fail(f"{name} {mode}: mean data BER {mean_ber} outside {band[0]} +- {band[1]}")
-    if launches["viterbi_decode_kernel"] != cfg.n_words("val"):
-        fail(f"{name} {mode}: K5 launched {launches['viterbi_decode_kernel']} times, not once "
-             "per block")
+    # the engine's per-block detect: K5 after the MLP, or the VA's K2
+    engine = "viterbi_decode_kernel" if trainable else "fused_va_detect"
+    if launches[engine] != cfg.n_words("val"):
+        fail(f"{name} {mode}: {engine} launched {launches[engine]} times, not once per block")
     want_k6 = result.n_gated if mode == "meta" else 0
     if launches["online_adapt_viterbinet"] != want_k6 or (mode == "meta" and want_k6 == 0):
         fail(f"{name} {mode}: K6 launched {launches['online_adapt_viterbinet']} times for "
              f"{result.n_gated} gated blocks")
-    if launches["fused_viterbinet_detect"] or launches["fused_va_detect"] \
-            or launches["fused_viterbinet_detect_chunked"]:
-        fail(f"{name} {mode}: the by-word path launched a batch detect kernel: {launches}")
-    if train_launches["fused_viterbinet_detect"] != cfg.train_minibatch_num:
+    if any(launches[k] for k in ("fused_viterbinet_detect", "fused_va_detect",
+                                 "fused_viterbinet_detect_chunked", "viterbi_decode_kernel")
+           if k != engine):
+        fail(f"{name} {mode}: the by-word path launched another detect kernel: {launches}")
+    if trainable and train_launches["fused_viterbinet_detect"] != cfg.train_minibatch_num:
         fail(f"{name} {mode}: train-on-miss evaluated through K1 "
              f"{train_launches['fused_viterbinet_detect']} times, not once per minibatch")
     return {"cfg": cfg, "trainer": trainer, "sers": sers, "mean_data_ber": mean_ber,
@@ -759,13 +851,15 @@ def phase_online(weights_dir: str) -> dict:
     out = {}
     meta = run_by_word("meta_vnet", "meta", f"{weights_dir}/meta_vnet", META_VNET_BAND)
     joint = run_by_word("vnet", "joint", f"{weights_dir}/vnet", VNET_JOINT_BAND)
+    va_joint = run_by_word("va", "joint", f"{weights_dir}/va", VA_JOINT_BAND)
 
     # the device's idle share over 300 blocks: a second by-word run of
     # each under the profiler (a fresh trainer on the same checkpoint,
     # so the first val batch of its stream)
-    for name, run in (("meta_vnet", meta), ("vnet", joint)):
+    for name, run in (("meta_vnet", meta), ("vnet", joint), ("va", va_joint)):
         again = Trainer(run["cfg"], name, verbose=False)
-        again.params = again.load_weights(10.0, run["cfg"].gamma)
+        if again.spec.trainable:
+            again.params = again.load_weights(10.0, run["cfg"].gamma)
         run["busy"] = device_busy(lambda: again.eval_by_word(10.0, run["cfg"].gamma))
         print(busy_line(f"{name} 300 by-word blocks (a second run)", run["busy"]))
 
@@ -795,7 +889,7 @@ def phase_online(weights_dir: str) -> dict:
           f"CPU {sers['cpu'].tolist()}")
     if block_diff > CARD_CPU_BLOCK_TOL or mean_diff > CARD_CPU_MEAN_TOL:
         fail("meta_vnet: the card and the CPU disagree on the first blocks")
-    for name, run in (("meta_vnet_meta", meta), ("vnet_joint", joint)):
+    for name, run in (("meta_vnet_meta", meta), ("vnet_joint", joint), ("va_joint", va_joint)):
         out[name] = {k: v for k, v in run.items() if k not in ("cfg", "trainer", "sers")}
     out["card_vs_cpu"] = {"blocks": n, "max_block_ser_diff": block_diff,
                           "mean_data_ser_diff": mean_diff}
@@ -938,6 +1032,9 @@ def phase_width(model: viterbinet.ViterbiNet, gen: torch.Generator, card: str) -
         record("fused_viterbinet_detect", W, lambda: acs.fused_viterbinet_detect(model, y),
                lambda: acs.fused_viterbinet_detect_plain(model, y),
                vnet_bound_ms(W, T_PROTO, 16), wide)
+    y, mu = kernel_inputs(1, T_PROTO, gen)
+    record("fused_va_detect", 1, lambda: acs.fused_va_detect(y, mu),
+           lambda: acs.fused_va_detect_plain(y, mu), va_bound_ms(1, T_PROTO, 16))
     for W, C in CHUNKED_TIMED:
         y = kernel_inputs(W, T_PROTO, gen)[0]
         record("fused_viterbinet_detect_chunked", W,
@@ -1001,7 +1098,17 @@ def kernel_rows(checks: dict, sl: dict, online: dict, times: dict) -> list:
             "call_ms_65536": wide_row["call_ms"], "plain_call_ms_65536": wide_row["plain_call_ms"],
             "bound_ms_65536": wide_row["bound_ms"], "bound_by_65536": wide_row["bound_by"],
             "checked": [{"shape": [W, T], **checks[(name, W, T)]} for W, T in KERNEL_CHECK_SHAPES],
+            "checked_by_S": {S: checks[(name, "S", S)] for S in STATES},
         })
+        if name == "fused_va_detect":
+            one = times[(name, 1)]
+            rows[-1].update({
+                "launches_va_joint": online["va_joint"]["launches"][name],
+                "ms_1": one["ms"], "plain_ms_1": one["plain_ms"], "call_ms_1": one["call_ms"],
+                "plain_call_ms_1": one["plain_call_ms"], "bound_ms_1": one["bound_ms"],
+                "bound_by_1": one["bound_by"], "checked_1": checks[(name, 1, T_PROTO)]})
+        else:
+            rows[-1]["tile_priors_max_abs_err"] = {S: checks[("tile", S)] for S in STATES}
     name = "fused_viterbinet_detect_chunked"
     main_row = times[(name, PROTO_W, 4)]
     rows.append({

@@ -25,6 +25,7 @@ and give the same bits for either setting.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -47,8 +48,8 @@ SUPPORTED_STATES = (2, 4, 8, 16)
 _PTR, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # library name -> argument types of its one C function of the same name
 _SIGNATURES = {
-    "va_detect": (_PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR),
-    "viterbinet_detect": (_PTR,) * 8 + (_INT, _INT, _INT, _PTR),
+    "va_detect": (_PTR, _PTR, _PTR) + (_INT,) * 5 + (_PTR,),
+    "viterbinet_detect": (_PTR,) * 8 + (_INT,) * 5 + (_PTR,),
     "viterbinet_detect_chunked": (_PTR,) * 8 + (_INT,) * 5 + (_PTR,),
     "viterbi_decode": (_PTR, _PTR, _INT, _INT, _INT, _PTR),
     "online_adapt": (_PTR,) * 20 + (_INT,) * 3 + (_F32,) * 9 + (_PTR,),
@@ -129,6 +130,33 @@ def _check_f32(name: str, t: torch.Tensor, ndim: int, device: torch.device) -> N
         raise ValueError(f"{name}: tensor must be contiguous")
 
 
+# csrc/prior_ring.cuh: the words of a block (one chain warp) and the
+# symbols of a ring slot, at most
+CHAIN_WORDS, SLOT_ROWS = 32, 128
+VA_SLOT_STEPS = 32  # K2's steps per slot at most: its first slot is ready sooner
+
+
+def chain_geometry(W: int, n_sms: int, max_slot_steps: int = SLOT_ROWS) -> tuple[int, int, int]:
+    """K1's and K2's launch: (words per block, steps per slot, blocks).
+    ceil(W / SMs) words per block, at most one chain warp's 32, so that
+    small W spreads over one block per SM and large W fills every chain
+    lane; a slot holds as many steps of those words as fit in SLOT_ROWS
+    symbols, at most max_slot_steps."""
+    words = max(1, min(CHAIN_WORDS, -(-W // n_sms)))
+    steps = min(max_slot_steps, SLOT_ROWS // words)
+    return words, steps, -(-W // words)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _geometry(y: torch.Tensor, max_slot_steps: int = SLOT_ROWS) -> tuple[int, int]:
+    words, steps, _ = chain_geometry(y.shape[0], _sm_count(y.device.index), max_slot_steps)
+    return words, steps
+
+
 def _route(name: str, y: torch.Tensor) -> bool:
     """True to launch the kernel (CUDA tensor), False for the plain version
     (CPU tensor); raises for any other device."""
@@ -167,6 +195,7 @@ def fused_va_detect(y: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
     lib = _library("va_detect")
     with torch.cuda.device(y.device):
         rc = lib.va_detect(y.data_ptr(), mu.data_ptr(), out.data_ptr(), W, T, S,
+                           *_geometry(y, VA_SLOT_STEPS),
                            torch.cuda.current_stream(y.device).cuda_stream)
     _check_launch("fused_va_detect", rc)
     fused_va_detect.launches += 1
@@ -274,13 +303,33 @@ def fused_viterbinet_detect(model: ViterbiNet, y: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(y.device):
         rc = lib.viterbinet_detect(
             y.data_ptr(), *(p.data_ptr() for p in params), out.data_ptr(), W, T,
-            params[4].shape[0], torch.cuda.current_stream(y.device).cuda_stream)
+            params[4].shape[0], *_geometry(y), torch.cuda.current_stream(y.device).cuda_stream)
     _check_launch("fused_viterbinet_detect", rc)
     fused_viterbinet_detect.launches += 1
     return out
 
 
 fused_viterbinet_detect.launches = 0
+
+
+@torch.no_grad()
+def viterbinet_tile_priors(model: ViterbiNet, y: torch.Tensor) -> torch.Tensor:
+    """The priors [64, S] of y [64] (CUDA) from one tensor-core tile, the
+    code K1 and K4 run (csrc/viterbinet_mlp.cuh::mlp_tile), for holding the
+    products against `_bf16_priors`. Counts no launch: no path runs it."""
+    params = _check_viterbinet("viterbinet_tile_priors", model, y.reshape(1, -1))
+    if y.shape != (64,) or y.device.type != "cuda":
+        raise ValueError("viterbinet_tile_priors: expected y [64] on a CUDA device")
+    lib = _library("viterbinet_detect")
+    fn = lib.viterbinet_tile_priors
+    fn.argtypes, fn.restype = (_PTR,) * 8 + (_INT, _PTR), ctypes.c_int
+    S = params[4].shape[0]
+    out = y.new_empty((64, S))
+    with torch.cuda.device(y.device):
+        rc = fn(y.data_ptr(), *(p.data_ptr() for p in params), out.data_ptr(), S,
+                torch.cuda.current_stream(y.device).cuda_stream)
+    _check_launch("viterbinet_tile_priors", rc)
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -13,21 +13,24 @@
 // Stream-head chunks (c == 0) skip their warm-up. The TPU kernel runs it on
 // zeroed priors, which keep every path metric at exactly 0.0 (0 + 0, a min
 // of zeros, minus 0), and drops its bits; skipping it leaves the same zero
-// metrics, so the head chains are bit-exact against it with no MLP work.
+// metrics, so the head chains are bit-exact against it (their warm-up rows
+// of a tile are computed and not stored).
 //
-// The per-symbol priors come from viterbinet_mlp.cuh, the code K1 runs, so
-// a symbol's priors are bit-identical in both kernels; the bits then equal
-// K1's wherever the trellis forgets its start within `overlap` steps.
+// The per-symbol priors come from viterbinet_mlp.cuh's wgmma tile, the code
+// K1 runs: a row of a tensor-core product depends only on its own operands,
+// so a symbol's priors are bit-identical in both kernels, and the bits then
+// equal K1's wherever the trellis forgets its start within `overlap` steps.
 //
 // What bounds it on an H100: operations, as K1: ~1.2e4 FLOP per extended
 // symbol, W * (T + (C - 1) * overlap) of them, against 8 bytes of y and bits
-// per symbol. Why it exists: at the protocol's 300 words K1 runs 38 blocks
-// of 8 chains of 136 dependent ACS steps on 132 SMs, a latency-bound
-// launch; chunking gives 38 * C blocks of chains of overlap + Tc steps.
-// The design is K1's: a block of 8 chains computes the priors of 32 steps
-// of its chains with all 256 threads into shared memory, then 8 threads run
-// the 8 chains over those steps with their metrics in registers. Any W,
-// any C dividing T with 1 <= overlap <= Tc: the ragged edges are masked.
+// per symbol. Why it exists: at the protocol's 300 words an unchunked chain
+// is 136 dependent ACS steps; chunking gives C times the chains of
+// overlap + Tc steps each.
+// The design: a block of 8 chains computes the priors of 32 steps of its
+// chains with both of its warpgroups (four 64-symbol wgmma tiles) into
+// shared memory, then 8 threads run the 8 chains over those steps with
+// their metrics in registers. Any W, any C dividing T with 1 <= overlap <=
+// Tc: the ragged edges are masked.
 #include <cuda_runtime.h>
 
 #include "acs.cuh"
@@ -62,16 +65,12 @@ viterbinet_detect_chunked_kernel(const float* __restrict__ y, const float* __res
 
   // Step e of a chain (0 <= e < ext) reads symbol c * Tc - overlap + e of
   // its word; e < overlap is warm-up (none for a head chain), e >= overlap
-  // writes its bit to that same symbol's place in out.
-  const int mj = tid / kSteps;  // MLP phase: this thread's chain ...
-  const int mc = tid % kSteps;  // ... and step within the loop's chunk
-  const long mchain = j0 + mj;
-  const bool m_live = mchain < n_chains;
-  const long m_row = m_live ? (mchain / C) * T : 0;
-  const int m_c = m_live ? static_cast<int>(mchain % C) : 0;
-  const int m_first = m_c == 0 ? overlap : 0;  // first step the chain runs
-  const long m_base = m_row + static_cast<long>(m_c) * Tc - overlap;
-
+  // writes its bit to that same symbol's place in out. The MLP phase runs
+  // the iteration's kChains x kSteps (chain, step) symbols, index
+  // chain * kSteps + step, as kThreads / kTileRows wgmma tiles, two per
+  // warpgroup; this thread owns two rows of each (see mlp_tile).
+  const int lane = tid % 32;
+  const int r0 = 128 * (tid / 128) + 16 * (tid / 32 % 4) + lane / 4;
   const long achain = j0 + tid;  // ACS phase: threads 0..7, one chain each
   const bool a_live = tid < kChains && achain < n_chains;
   const int a_first = (a_live && achain % C == 0) ? overlap : 0;
@@ -81,10 +80,34 @@ viterbinet_detect_chunked_kernel(const float* __restrict__ y, const float* __res
 
   for (int e0 = 0; e0 < ext; e0 += kSteps) {
     const int steps = min(kSteps, ext - e0);
-    const int e = e0 + mc;
     __syncthreads();  // weights loaded / previous chunk's bits written out
-    if (m_live && mc < steps && e >= m_first)
-      symbol_prior<S>(s_mlp, y[m_base + e], s_prior + mj * kChainStride + mc * kStepStride);
+#pragma unroll
+    for (int tile = 0; tile < 2; ++tile) {
+      int idx[2];
+      float yv[2];
+      bool live[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        idx[h] = r0 + kTileRows * tile + 8 * h;
+        const long chain = j0 + idx[h] / kSteps;
+        const int c = idx[h] % kSteps, e = e0 + c;
+        const int first = chain % C == 0 ? overlap : 0;  // first step the chain runs
+        live[h] = chain < n_chains && c < steps && e >= first;
+        yv[h] = live[h] ? y[(chain / C) * T + (chain % C) * Tc - overlap + e] : 0.0f;
+      }
+      float p[2][kPriorCols<S>()];
+      mlp_tile<S>(s_mlp, yv[0], yv[1], p[0], p[1]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (!live[h]) continue;
+        float* dst = s_prior + (idx[h] / kSteps) * kChainStride + (idx[h] % kSteps) * kStepStride;
+#pragma unroll
+        for (int j = 0; j < kPriorCols<S>(); ++j) {
+          const int col = prior_col<S>(j, lane);
+          if (col < S) dst[col] = p[h][j];
+        }
+      }
+    }
     __syncthreads();
     if (a_live) {
       const float* prior = s_prior + tid * kChainStride;
@@ -96,7 +119,10 @@ viterbinet_detect_chunked_kernel(const float* __restrict__ y, const float* __res
       }
     }
     __syncthreads();
-    if (m_live && mc < steps && e >= overlap) out[m_base + e] = s_bits[mj][mc];
+    const int mj = tid / kSteps, mc = tid % kSteps;  // write-out: one (chain, step) each
+    const long chain = j0 + mj;
+    if (chain < n_chains && mc < steps && e0 + mc >= overlap)
+      out[(chain / C) * T + (chain % C) * Tc - overlap + e0 + mc] = s_bits[mj][mc];
   }
 }
 

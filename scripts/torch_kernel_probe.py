@@ -1,11 +1,14 @@
 """A short first call for the port's kernels on a card: build them all and
-print nvcc's register report; compare K5 with its plain version at every S
-and a few shapes; compare K6 with its plain version after 40 steps and after
-a resumed call of 40 more at several T and S, with a float64 run of the
-plain version as the witness of how far f32 rounding alone carries the
-parameters, and two K6 launches from the same inputs with each other; then
-time K1, K2 and K4 at the protocol's 300 x 136, K5 and K6 on the device (a
-CUDA graph of back-to-back calls).
+print nvcc's register report; hold one tensor-core tile of K1's priors
+against the plain version's; compare K1 and K2 with their plain versions at
+every S and a few shapes, and two launches of each with each other; K4
+against its plain version; K5 at every S and a few shapes; K6 after 40
+steps against its plain version and, after 40 + 40, against a float64 run
+of the plain version's arithmetic (its distance within a multiple of the f32
+plain version's, chip_smoke.py's K6_WITNESS_*), on a few (T, S) words and
+the witness words; two K6 launches with each other; then time K1, K2 and K4
+at the protocol's 300 x 136, K1 and K2 at 65536 x 136, K2 and K5 at the
+engine's 1 x 136, and K6 on the device (a CUDA graph of back-to-back calls).
 
     env PYTHONPATH=. python3 scripts/torch_kernel_probe.py
     env PYTHONPATH=<other checkout> python3 scripts/torch_kernel_probe.py --time
@@ -16,26 +19,34 @@ exits non-zero if a check fails. With --time it skips the checks and only
 times, so that it can time another checkout's package (an earlier commit,
 unpacked with `git archive`) in the same call: run the two in turns.
 """
+import importlib.util
 import sys
 import time
+from pathlib import Path
 
 import torch
 
-from chip_smoke import adapt_bound_ms, card_line, graph_ms, kernel_inputs
 from metaviterbinet_tpu_torch.kernels import acs, online_sgd
 from metaviterbinet_tpu_torch.models import viterbinet
 from metaviterbinet_tpu_torch.ops.trellis import calculate_states
 from metaviterbinet_tpu_torch.train.optim import Optimizer
 
+# this checkout's chip_smoke.py, whichever package PYTHONPATH points at
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(smoke)
+
+STATES = (2, 4, 8, 16)
+DETECT_SHAPES = ((1, 136), (300, 136), (4096, 41), (33, 7))
 K5_SHAPES = ((1, 136), (300, 136), (4096, 41), (33, 7), (1, 1000))
 K6_CASES = ((16, 136), (16, 41), (16, 5), (16, 1000), (2, 136))  # (S, T)
-K6_LIMITS = {"40 steps": 5e-6, "resumed 40 + 40": 2e-5}  # the JAX kernel's contract
-# (S, T) whose resumed 40 + 40 exceeds 2e-5 on this script's seed-0 words.
-# There the f32 plain version itself is 1.6e-4 from the float64 run and the
-# kernel 3.4e-4 (an NVIDIA H100, PERF.md): f32 rounding that Adam amplifies,
-# which the contract's limit does not allow for on such a word. The excess
-# is printed as known and does not fail the probe
-KNOWN_RESUMED_EXCEEDANCE = {(16, 136)}
+K6_LIMIT = 5e-6  # after 40 steps, against the f32 plain version: the JAX kernel's contract
+# one tensor-core tile of priors against the plain version's: bf16 operands
+# with f32 sums in another order, and an h1 whose sigmoid lands on a bf16
+# rounding boundary may round the other way (one bf16 ulp of h1 moves a
+# prior by ~1e-3 at these weights)
+TILE_TOL = 5e-3
 
 
 def k6_inputs(S, T, g):
@@ -60,27 +71,30 @@ def max_diff(a, b):
     return max(float((a[k].double() - b[k].double()).abs().max()) for k in a)
 
 
+def check_witness(label, p, y, states) -> bool:
+    d = smoke.k6_witness(p, y, states)
+    held = smoke.witness_holds(d)
+    print(f"K6 {label} resumed 40 + 40: vs float64 kernel {d['kernel_f64']:.3e}, f32 plain "
+          f"{d['plain_f64']:.3e} (ratio {d['kernel_f64'] / d['plain_f64']:.2f}); kernel vs f32 "
+          f"plain {d['kernel_plain']:.3e}; {'within' if held else 'EXCEEDS'} "
+          f"{smoke.K6_WITNESS_MULTIPLE:g} x plain + {smoke.K6_WITNESS_FLOOR:g}", flush=True)
+    return held
+
+
 def check_k6(S, T, g) -> bool:
-    """K6, the f32 plain version and a float64 plain version from the same
-    params and zero moments, 40 steps and 40 more; then two K6 launches."""
+    """K6 and its f32 plain version from the same params and zero moments,
+    40 steps; the float64 witness of 40 + 40; two K6 launches."""
     p, y, states = k6_inputs(S, T, g)
     (pk, sk), (pp, sp), (pr, sr) = copies(p, 3)
-    ((pd, sd),) = copies(p, 1, torch.float64)
-    y64 = y.double()
-    ok = True
-    for label in K6_LIMITS:
-        online_sgd.online_adapt_viterbinet(pk, sk, y, states, 40, 1e-3)
-        online_sgd.online_adapt_viterbinet_plain(pp, sp, y, states, 40, 1e-3)
-        online_sgd.online_adapt_viterbinet_plain(pd, sd, y64, states, 40, 1e-3)
-        torch.cuda.synchronize()
-        err = max_diff(pk, pp)
-        known = label != "40 steps" and (S, T) in KNOWN_RESUMED_EXCEEDANCE
-        held = err <= K6_LIMITS[label]
-        verdict = "within" if held else ("EXCEEDS (known)" if known else "EXCEEDS")
-        print(f"K6 S={S} T={T} {label}: max |dparam| {err:.3e} vs the f32 plain version, "
-              f"{verdict} {K6_LIMITS[label]:g}; vs float64: kernel {max_diff(pk, pd):.3e}, "
-              f"f32 plain {max_diff(pp, pd):.3e}", flush=True)
-        ok &= held or known
+    online_sgd.online_adapt_viterbinet(pk, sk, y, states, 40, 1e-3)
+    online_sgd.online_adapt_viterbinet_plain(pp, sp, y, states, 40, 1e-3)
+    torch.cuda.synchronize()
+    err = max_diff(pk, pp)
+    ok = err <= K6_LIMIT
+    print(f"K6 S={S} T={T} 40 steps: max |dparam| {err:.3e} vs the f32 plain version, "
+          f"{'within' if ok else 'EXCEEDS'} {K6_LIMIT:g}", flush=True)
+    ok &= check_witness(f"S={S} T={T}", p, y, states)
+    online_sgd.online_adapt_viterbinet(pk, sk, y, states, 40, 1e-3)
     online_sgd.online_adapt_viterbinet(pr, sr, y, states, 40, 1e-3)
     online_sgd.online_adapt_viterbinet(pr, sr, y, states, 40, 1e-3)
     same = all(torch.equal(a[k], b[k]) for a, b in ((pk, pr), (sk.mu, sr.mu), (sk.nu, sr.nu))
@@ -89,9 +103,46 @@ def check_k6(S, T, g) -> bool:
     return ok and same
 
 
+def check_detect(g) -> bool:
+    ok = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for S in STATES:
+        model = viterbinet.init_params(S, g, device="cuda")
+        y = 2 * torch.randn(64, generator=g, device="cuda")
+        got = acs.viterbinet_tile_priors(model, y)
+        want = acs._bf16_priors(model, y[None]).reshape(64, S)
+        err = float((got - want).abs().max())
+        print(f"K1 tile S={S}: priors max |diff| {err:.3e} vs the plain version "
+              f"(limit {TILE_TOL:g}), {float((got != want).float().mean()):.3f} of them differ",
+              flush=True)
+        ok &= err <= TILE_TOL
+        for W, T in DETECT_SHAPES:
+            y, mu = smoke.kernel_inputs(W, T, g, S)
+            for name, kernel, plain in (
+                    ("K2", lambda: acs.fused_va_detect(y, mu),
+                     lambda: acs.fused_va_detect_plain(y, mu)),
+                    ("K1", lambda: acs.fused_viterbinet_detect(model, y),
+                     lambda: acs.fused_viterbinet_detect_plain(model, y))):
+                got, again = kernel(), kernel()
+                rate = float((got != plain()).float().mean())
+                same = torch.equal(got, again)
+                limit_ok = rate == 0 if name == "K2" else rate < 1e-3
+                print(f"{name} S={S} {W}x{T}: mismatch {rate:.3e}, two launches bit-identical "
+                      f"{same}", flush=True)
+                ok &= limit_ok and same
+    model = viterbinet.init_params(16, g, device="cuda")
+    for C in (2, 4):
+        y = smoke.kernel_inputs(300, 136, g)[0]
+        rate = float((acs.fused_viterbinet_detect_chunked(model, y, C)
+                      != acs.fused_viterbinet_detect_chunked_plain(model, y, C)).float().mean())
+        print(f"K4 C={C} 300x136: mismatch {rate:.3e}", flush=True)
+        ok &= rate < 1e-3
+    return ok
+
+
 def main() -> int:
     print(torch.__version__, torch.version.cuda, torch.cuda.get_device_name(0), flush=True)
-    card = card_line()
+    card = smoke.card_line()
     print(card)
     t0 = time.time()
     print("build", acs.build_kernels(), time.time() - t0, flush=True)
@@ -104,33 +155,43 @@ def main() -> int:
     ok = True
     check = "--time" not in sys.argv[1:]
     print("package", acs.__file__, "checks" if check else "times only", flush=True)
-    for S in (2, 4, 8, 16) if check else ():
-        for W, T in K5_SHAPES:
-            pri = torch.randn((W, T, S), generator=g, device="cuda")
-            got = acs.viterbi_decode_kernel(pri)
-            bad = int((got != acs.viterbi_decode_kernel_plain(pri)).sum())
-            print("K5", S, W, T, "mismatch", bad, flush=True)
-            ok &= bad == 0
-    for S, T in K6_CASES if check else ():
-        ok &= check_k6(S, T, g)
+    if check:
+        for S in STATES:
+            for W, T in K5_SHAPES:
+                pri = torch.randn((W, T, S), generator=g, device="cuda")
+                got = acs.viterbi_decode_kernel(pri)
+                bad = int((got != acs.viterbi_decode_kernel_plain(pri)).sum())
+                print("K5", S, W, T, "mismatch", bad, flush=True)
+                ok &= bad == 0
+        for S, T in K6_CASES:  # the first is the seed-0 word at T = 136
+            ok &= check_k6(S, T, g)
+        for T, seed in smoke.K6_WITNESS_WORDS:
+            ok &= check_witness(f"witness word T={T} seed={seed}", *smoke.k6_witness_word(T, seed))
+        ok &= check_detect(torch.Generator(device="cuda").manual_seed(1))
 
     model = viterbinet.init_params(16, g, device="cuda")
-    y, mu = kernel_inputs(300, 136, g)
-    for name, fn in (("K2", lambda: acs.fused_va_detect(y, mu)),
-                     ("K1", lambda: acs.fused_viterbinet_detect(model, y)),
-                     ("K4 C=2", lambda: acs.fused_viterbinet_detect_chunked(model, y, 2)),
-                     ("K4 C=4", lambda: acs.fused_viterbinet_detect_chunked(model, y, 4))):
-        print(f"{name} 300x136: {graph_ms(fn):.5f} ms on the device [{card}]", flush=True)
+    for W in (300, 65536):
+        y, mu = smoke.kernel_inputs(W, 136, g)
+        for name, fn in (("K2", lambda: acs.fused_va_detect(y, mu)),
+                         ("K1", lambda: acs.fused_viterbinet_detect(model, y))):
+            print(f"{name} {W}x136: {smoke.graph_ms(fn):.5f} ms on the device [{card}]", flush=True)
+    y = smoke.kernel_inputs(300, 136, g)[0]
+    for C in (2, 4):
+        ms = smoke.graph_ms(lambda: acs.fused_viterbinet_detect_chunked(model, y, C))
+        print(f"K4 C={C} 300x136: {ms:.5f} ms on the device [{card}]", flush=True)
+    y, mu = smoke.kernel_inputs(1, 136, g)
+    print(f"K2 1x136: {smoke.graph_ms(lambda: acs.fused_va_detect(y, mu)):.5f} ms on the device "
+          f"[{card}]", flush=True)
     for W, T in ((1, 136), (300, 136), (1, 1000)):
         pri = torch.randn((W, T, 16), generator=g, device="cuda")
-        ms = graph_ms(lambda: acs.viterbi_decode_kernel(pri))
+        ms = smoke.graph_ms(lambda: acs.viterbi_decode_kernel(pri))
         print(f"K5 {W}x{T}x16: {ms:.5f} ms on the device [{card}]", flush=True)
     p, y, states = k6_inputs(16, 136, g)
     ((pk, sk),) = copies(p, 1)
-    ms = graph_ms(lambda: online_sgd.online_adapt_viterbinet(pk, sk, y, states, 200, 1e-3),
+    ms = smoke.graph_ms(lambda: online_sgd.online_adapt_viterbinet(pk, sk, y, states, 200, 1e-3),
                   per_graph=2, replays=10)
     print(f"K6 T=136 200 steps: {ms:.5f} ms on the device, {1e3 * ms / 200:.3f} us per step; "
-          f"bound {adapt_bound_ms(136, 16, 200)[0]:.5f} ms (card) [{card}]", flush=True)
+          f"bound {smoke.adapt_bound_ms(136, 16, 200)[0]:.5f} ms (card) [{card}]", flush=True)
     print("probe", "passed" if ok else "FAILED")
     return 0 if ok else 1
 

@@ -8,6 +8,7 @@ JAX, so it also runs on a machine without it:
 import pytest
 import torch
 
+import chip_smoke
 from metaviterbinet_tpu_torch.kernels import acs, online_sgd
 from metaviterbinet_tpu_torch.models import va, viterbinet
 from metaviterbinet_tpu_torch.ops.trellis import calculate_states
@@ -44,6 +45,57 @@ def test_viterbinet_kernel_matches_plain(gen, W, T):
     assert acs.fused_viterbinet_detect.launches == before + 1
     want = acs.fused_viterbinet_detect_plain(model, y)
     assert float((got != want).float().mean()) < 1e-3
+
+
+DETECT_SHAPES = [(1, 136), (300, 136), (4096, 41), (33, 7)]
+
+
+@pytest.mark.parametrize("S", [2, 4, 8, 16])
+@pytest.mark.parametrize("W,T", DETECT_SHAPES)
+def test_va_kernel_bit_identical_at_every_S(gen, S, W, T):
+    """K2 at every S and at the engine's, the protocol's, a wide and a
+    ragged shape: the plain version's bits, and the same bits from two
+    launches (the ring's hand-off between producer and chain warps)."""
+    y, mu = chip_smoke.kernel_inputs(W, T, gen, S)
+    before = acs.fused_va_detect.launches
+    got, again = acs.fused_va_detect(y, mu), acs.fused_va_detect(y, mu)
+    assert acs.fused_va_detect.launches == before + 2
+    assert torch.equal(got, acs.fused_va_detect_plain(y, mu))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("S", [2, 4, 8, 16])
+@pytest.mark.parametrize("W,T", DETECT_SHAPES)
+def test_viterbinet_kernel_matches_plain_at_every_S(gen, S, W, T):
+    """K1 likewise: < 1e-3 bit mismatch (the tensor cores sum in another
+    order), and two launches bit-identical."""
+    model = viterbinet.init_params(S, gen, device="cuda")
+    y = chip_smoke.kernel_inputs(W, T, gen, S)[0]
+    before = acs.fused_viterbinet_detect.launches
+    got, again = acs.fused_viterbinet_detect(model, y), acs.fused_viterbinet_detect(model, y)
+    assert acs.fused_viterbinet_detect.launches == before + 2
+    want = acs.fused_viterbinet_detect_plain(model, y)
+    assert float((got != want).float().mean()) < 1e-3
+    assert torch.equal(got, again)
+
+
+# one tensor-core tile of priors against the plain version's (TF32 off):
+# bf16 operands with f32 sums in another order, and an h1 whose sigmoid
+# lands on a bf16 rounding boundary may round the other way, which moves a
+# prior by about one bf16 ulp of h1 times a weight of W2 and W3
+TILE_TOL = 5e-3
+
+
+@pytest.mark.parametrize("S", [2, 4, 8, 16])
+def test_tensor_core_tile_priors_match_plain(gen, S):
+    """One 64-symbol wgmma tile (csrc/viterbinet_mlp.cuh::mlp_tile, the code
+    K1 and K4 run) against `_bf16_priors` on the same samples."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = viterbinet.init_params(S, gen, device="cuda")
+    y = 2 * torch.randn(64, generator=gen, device="cuda")
+    got = acs.viterbinet_tile_priors(model, y)
+    want = acs._bf16_priors(model, y[None]).reshape(64, S)
+    assert float((got - want).abs().max()) <= TILE_TOL
 
 
 def test_kernels_break_exact_ties_toward_state_zero(gen):
@@ -117,6 +169,33 @@ def test_online_adapt_kernel_is_deterministic(gen):
     for k in a:
         assert torch.equal(a[k], b[k]) and torch.equal(sa.mu[k], sb.mu[k]), k
         assert torch.equal(sa.nu[k], sb.nu[k]), k
+
+
+def _probe_seed0_word():
+    """The word of scripts/torch_kernel_probe.py's first K6 case (S = 16,
+    T = 136), on which the resumed 40 + 40 first missed 2e-5: its draws from
+    a CUDA generator seeded 0, after the probe's K5 draws."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for S in (2, 4, 8, 16):
+        for W, T in ((1, 136), (300, 136), (4096, 41), (33, 7), (1, 1000)):
+            torch.randn((W, T, S), generator=g, device="cuda")
+    model = viterbinet.init_params(16, g, device="cuda")
+    y = torch.randn(136, generator=g, device="cuda")
+    states = calculate_states(4, torch.randint(0, 2, (1, 136), generator=g, device="cuda").float())
+    return {k: v.detach() for k, v in viterbinet.param_dict(model).items()}, y, states
+
+
+@pytest.mark.parametrize("word", [*chip_smoke.K6_WITNESS_WORDS, "probe"])
+def test_online_adapt_kernel_drift_is_rounding(gen, word):
+    """After 40 + 40 steps, K6's distance from a float64 run of the plain
+    version's arithmetic is within K6_WITNESS_MULTIPLE times the f32 plain
+    version's distance plus K6_WITNESS_FLOOR (chip_smoke.py), on the words
+    of tests/test_torch_kernels.py's CPU witness (as (T, seed); the port's
+    own init) and the probe's seed-0 word."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    inputs = _probe_seed0_word() if word == "probe" else chip_smoke.k6_witness_word(*word)
+    d = chip_smoke.k6_witness(*inputs)
+    assert chip_smoke.witness_holds(d), d
 
 
 def _channel_words(W, gen):
