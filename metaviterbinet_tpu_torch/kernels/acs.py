@@ -10,10 +10,13 @@ Four hand-written CUDA kernels, one per source in csrc/:
   - `viterbi_decode_kernel` (csrc/viterbi_decode.cu) replaces
     metaviterbinet_tpu/kernels/acs.py::pallas_viterbi_decode.
 
-Each source in csrc/ (these four and kernels/online_sgd.py's) is compiled by
-nvcc for sm_90a into a shared library with a plain C interface, at the first
-CUDA call (or all together by `build_kernels`), into kernels/_build/, and
-loaded with ctypes. A wrapper launches its kernel
+K1 and K2 are each a prior producer and a chain consumer in one block
+(csrc/prior_ring.cuh); `chain_geometry` sizes their blocks from W and the
+card's SM count. Each source in csrc/ (these four and
+kernels/online_sgd.py's) is compiled by nvcc for sm_90a into a shared
+library with a plain C interface, at the first CUDA call (or all together
+by `build_kernels`), into kernels/_build/, and loaded with ctypes. A
+wrapper launches its kernel
 on the current stream for CUDA tensors and counts the launch in its
 `launches` attribute; for CPU tensors it runs the kernel's plain PyTorch
 version, which the tests and chip_smoke.py also hold the kernel against.

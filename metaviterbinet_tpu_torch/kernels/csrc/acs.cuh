@@ -19,9 +19,12 @@
 // ties do happen).
 //
 // acs_step_linear is the same step with a linear readout over all S states
-// and a running minimum, the same bits. K2 (va_detect.cu) uses it: there,
-// with the priors computed inline, the tree form measured 8-10% slower, while
-// K1, K4 and K5 measured faster with the tree (PERF.md).
+// and a running minimum, the same bits; no kernel uses it by default.
+// scripts/torch_kernel_variants.py builds K1 and K2 with it: on an H100 the
+// tree step takes ~27% less time than the linear one in K2 at one word and
+// at 300 words, ~16% less in K1 at 300 words and 4-8% less at 65536 words
+// (PERF.md). (When K2 computed its priors inline on the chain, the tree
+// form was the slower one there.)
 #pragma once
 
 #include <cuda_runtime.h>

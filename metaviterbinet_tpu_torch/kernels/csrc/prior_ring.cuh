@@ -10,14 +10,19 @@
 // while the block's chain warp runs the ACS over the slot that has arrived.
 //
 // A slot holds `slot_steps` steps of the block's `words` words (at most
-// kSlotRows symbols), row
-// c * words + w for step c of word w, each row kStride<S>() floats (S
-// priors, padded for S >= 8 so that the chain lanes' 16-byte loads of
-// neighbouring rows fall in different banks). Hand-off: full[s] completes
-// when every producer thread has arrived after writing slot s, empty[s]
-// when every chain lane has arrived after reading it; the producer waits
-// on empty[s] before refilling it. mbarriers, not __syncthreads, so the
-// chain waits only for the slot it needs.
+// kSlotRows symbols), row c * words + w for step c of word w, each row
+// kStride<S>() floats (S priors, padded for S >= 8 so that the chain lanes'
+// 16-byte loads of neighbouring rows fall in different banks). Hand-off:
+// full[s] completes when every producer thread has arrived after writing
+// slot s, empty[s] when every chain lane has arrived after reading it; the
+// producer waits on empty[s] before refilling it. mbarriers, not
+// __syncthreads, so the chain waits only for the slot it needs.
+//
+// Each lane of a full block at large W touches its own word's row of the
+// output, 32 rows per warp instruction; such an instruction costs the SM's
+// memory pipeline about as much as 32 coalesced ones, so where the rows are
+// 16-byte aligned (T % 4 == 0) the bits leave in 16-byte stores, one per 4
+// steps (on an H100 this halved K2's time at 65536 words, PERF.md).
 //
 // The launch geometry (words per block, steps per slot) is computed by the
 // wrapper (kernels/acs.py::chain_geometry) from W and the SM count.
@@ -34,17 +39,7 @@
 #define ACS_STEP acs_step
 #endif
 
-// slots in the ring; a build may define RING_STAGES
-// (scripts/torch_kernel_variants.py times 2, 3 and 4)
-#ifndef RING_STAGES
-#define RING_STAGES 3
-#endif
-constexpr int kStages = RING_STAGES;
-// 1: one lane per warp waits on and arrives at the ring's barriers, after
-// __syncwarp; 0: every lane does. A build may define RING_ELECT.
-#ifndef RING_ELECT
-#define RING_ELECT 0
-#endif
+constexpr int kStages = 3;       // slots in the ring
 constexpr int kChainWords = 32;  // words of a block at most: one chain warp
 constexpr int kSlotRows = 128;   // symbols of a slot at most: slot_steps * words
 
@@ -96,32 +91,9 @@ __device__ __forceinline__ void ring_init(RingBarriers& b, unsigned producers,
   }
 }
 
-// arrivals a warp makes at one phase of a ring barrier
-constexpr unsigned kWarpArrivals = RING_ELECT ? 1 : 32;
-
-// a warp's wait on `bar` (acquire for every lane)
-__device__ __forceinline__ void warp_wait(uint64_t* bar, uint32_t parity) {
-#if RING_ELECT
-  if (threadIdx.x % 32 == 0) mbar_wait(bar, parity);
-  __syncwarp();
-#else
-  mbar_wait(bar, parity);
-#endif
-}
-
-// a warp's arrival at `bar` (release of every lane's earlier accesses)
-__device__ __forceinline__ void warp_arrive(uint64_t* bar) {
-#if RING_ELECT
-  __syncwarp();
-  if (threadIdx.x % 32 == 0) mbar_arrive(bar);
-#else
-  mbar_arrive(bar);
-#endif
-}
-
 // producer side: wait until slot `slot % kStages` may be written
 __device__ __forceinline__ void ring_acquire(RingBarriers& b, int slot) {
-  if (slot >= kStages) warp_wait(&b.empty[slot % kStages], ((slot / kStages) - 1) & 1);
+  if (slot >= kStages) mbar_wait(&b.empty[slot % kStages], ((slot / kStages) - 1) & 1);
 }
 
 template <int S>
@@ -144,8 +116,9 @@ __device__ __forceinline__ void load_row(const float* __restrict__ src, float (&
 
 // The chain warp: lane w < words runs word w's ACS with its S metrics in
 // registers over every slot of the ring in order, and writes its bit of
-// each step to bits[t] (bits = out + (w0 + w) * T). Every lane takes part
-// in the hand-off, live or not.
+// each step to bits[t] (bits = out + (w0 + w) * T, 16-byte aligned where T
+// is a multiple of 4, as the wrapper's output is). Every lane takes part in
+// the hand-off, live or not.
 template <int S>
 __device__ __forceinline__ void run_chains(const float* ring, RingBarriers& b, int words,
                                            int slot_steps, int T, float* __restrict__ bits) {
@@ -156,13 +129,11 @@ __device__ __forceinline__ void run_chains(const float* ring, RingBarriers& b, i
 #pragma unroll
   for (int s = 0; s < S; ++s) m[s] = 0.0f;
   const int n_slots = (T + slot_steps - 1) / slot_steps;
-  // every word's row and every slot start at a multiple of 4 steps: the
-  // bits leave in 16-byte stores (bits is 16-byte aligned, as the
-  // wrapper's output is)
+  // every word's row and every slot start at a multiple of 4 steps
   const bool vec4 = T % 4 == 0 && slot_steps % 4 == 0;
   for (int slot = 0; slot < n_slots; ++slot) {
     const int st = slot % kStages;
-    warp_wait(&b.full[st], (slot / kStages) & 1);
+    mbar_wait(&b.full[st], (slot / kStages) & 1);
     if (live) {
       const int t0 = slot * slot_steps;
       const int steps = min(slot_steps, T - t0);
@@ -170,14 +141,14 @@ __device__ __forceinline__ void run_chains(const float* ring, RingBarriers& b, i
       const int stride = words * kRow;
       if (vec4) {  // a store of 16 bytes per 4 steps
         for (int c = 0; c < steps; c += 4) {
-          float b[4];
+          float four[4];
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             float p[S];
             load_row<S>(row + (c + i) * stride, p);
-            b[i] = ACS_STEP<S>(m, p);
+            four[i] = ACS_STEP<S>(m, p);
           }
-          *reinterpret_cast<float4*>(bits + t0 + c) = make_float4(b[0], b[1], b[2], b[3]);
+          *reinterpret_cast<float4*>(bits + t0 + c) = make_float4(four[0], four[1], four[2], four[3]);
         }
       } else {
 #pragma unroll 4
@@ -188,6 +159,6 @@ __device__ __forceinline__ void run_chains(const float* ring, RingBarriers& b, i
         }
       }
     }
-    warp_arrive(&b.empty[st]);
+    mbar_arrive(&b.empty[st]);
   }
 }

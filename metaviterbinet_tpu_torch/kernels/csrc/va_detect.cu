@@ -7,18 +7,21 @@
 // and only the bits are written.
 //
 // What bounds it on an H100: at small W (the VA engine's one word per
-// block, the protocol's 300) the latency of each word's T-step dependent
-// chain; at large W issue slots, since the metric's 4 S and the chain's
-// ~3.5 S f32 operations per symbol are of the same order and both run on
-// the CUDA cores, against 8 bytes of y and bits per symbol.
+// launch, the protocol's 300) the latency of each word's T-step dependent
+// chain; at large W the SM's memory pipeline, since every symbol's S priors
+// pass through shared memory twice and each lane of a full block reads and
+// writes its own word's row of y and the bits (its byte bound, 8 bytes per
+// symbol, is 4x below what it takes at 65536 words).
 // What the design does about it (prior_ring.cuh): the metric leaves the
 // chain. One producer warp computes the priors of the next slot of
-// (step, word) symbols, its 32 lanes over the slot's symbols, into a ring
-// in shared memory, while the chain warp's lanes, one per word, run the
-// ACS over the slot that has arrived, with nothing but loads from shared
-// memory on their chain. A block holds ceil(W / SMs) words (at most 32), so
-// W = 300 spreads over 100 SMs and W = 1 is one block. Any W and T: the
-// ragged edges are masked.
+// (step, word) symbols, its 32 lanes over the slot's symbols, into a ring in
+// shared memory, while the chain warp's lanes, one per word, run the ACS
+// over the slot that has arrived (the tree step of acs.cuh), with nothing
+// but loads from shared memory on their chain. The producer loads its
+// samples one slot ahead, in 16-byte loads where a lane's rows are 4 steps
+// of one word, and the chain stores its bits 4 steps at a time. A block
+// holds ceil(W / SMs) words (at most 32), so W = 300 spreads over 100 SMs
+// and W = 1 is one block. Any W and T: the ragged edges are masked.
 //
 // Rounding: the prior is written with explicit round-to-nearest intrinsics
 // so nvcc cannot contract it into an FMA; it rounds like the plain PyTorch
@@ -30,12 +33,7 @@
 
 namespace {
 
-// producer warps; a build may define VA_PRODUCER_WARPS
-#ifndef VA_PRODUCER_WARPS
-#define VA_PRODUCER_WARPS 1
-#endif
-constexpr int kProducerWarps = VA_PRODUCER_WARPS;
-constexpr int kThreads = 32 * (1 + kProducerWarps);  // warp 0: the chains; then the producers
+constexpr int kThreads = 64;  // warp 0: the chains; warp 1: the producer
 // float32(log(sqrt(2 pi))), the constant the PyTorch and JAX versions subtract
 constexpr float kLogSqrt2Pi = 0x1.d67f1cp-1f;
 
@@ -46,22 +44,20 @@ __device__ __forceinline__ void load_samples(const float* __restrict__ y, float 
                                              int T, int lane) {
   const int t0 = slot * slot_steps;
   const int rows = slot < n_slots ? min(slot_steps, T - t0) * words : 0;
-  if constexpr (N == 4 && kProducerWarps == 1) {
+  if (N == 4 && words == kChainWords && slot_steps == 4 && T % 4 == 0) {
     // a full block at large W: lane l's rows are word l's 4 steps, one
-    // 16-byte load when the row is 16-byte aligned
-    if (words == kChainWords && slot_steps == 4 && T % 4 == 0) {
-      const float4 q = rows > 0 ? *reinterpret_cast<const float4*>(y + (w0 + lane) * T + t0)
-                                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      v[0] = q.x;
-      v[1] = q.y;
-      v[2] = q.z;
-      v[3] = q.w;
-      return;
-    }
+    // 16-byte load (the rows are 16-byte aligned)
+    const float4 q = rows > 0 ? *reinterpret_cast<const float4*>(y + (w0 + lane) * T + t0)
+                              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+    return;
   }
 #pragma unroll
   for (int j = 0; j < N; ++j) {
-    const int r = lane + 32 * kProducerWarps * j;
+    const int r = lane + 32 * j;
     const int c = r / words;
     v[j] = r < rows ? y[(w0 + r - c * words) * T + t0 + c] : 0.0f;
   }
@@ -85,22 +81,20 @@ va_detect_kernel(const float* __restrict__ y, const float* __restrict__ mu,
   const int words = static_cast<int>(min(static_cast<long>(words_per_block), W - w0));
   for (int i = tid; i < words * S; i += kThreads)
     sm.mean[(i / S) * kRow + i % S] = mu[w0 * S + i];
-  if (tid == 0) ring_init(sm.bar, kProducerWarps * kWarpArrivals, kWarpArrivals);
+  if (tid == 0) ring_init(sm.bar, 32, 32);
   __syncthreads();
 
   if (tid < 32) {
     run_chains<S>(sm.ring, sm.bar, words, slot_steps, T, out + (w0 + tid) * T);
     return;
   }
-  // the producer warps: lane l of them takes rows l, l + 32 P, ... of each
-  // slot, and loads its samples of the next slot before computing this
-  // one's priors
-  constexpr int kLanes = 32 * kProducerWarps;
-  constexpr int kRowsPerLane = kSlotRows / kLanes;
+  // the producer warp: lane l takes rows l, l + 32, ... of each slot, and
+  // loads its samples of the next slot before computing this one's priors
+  constexpr int kRowsPerLane = kSlotRows / 32;
   const int lane = tid - 32;
   const int n_slots = (T + slot_steps - 1) / slot_steps;
-  // with words dividing the lane count a lane's rows all belong to word lane % words
-  const bool one_word = kLanes % words == 0;
+  // with words dividing 32 a lane's rows all belong to word lane % words
+  const bool one_word = 32 % words == 0;
   float mean[S];
   load_row<S>(sm.mean + (lane % words) * kRow, mean);
   float ycur[kRowsPerLane], ynext[kRowsPerLane];
@@ -112,7 +106,7 @@ va_detect_kernel(const float* __restrict__ y, const float* __restrict__ mu,
     float* dst = sm.ring + (slot % kStages) * kSlotRows * kRow;
 #pragma unroll
     for (int j = 0; j < kRowsPerLane; ++j) {
-      const int r = lane + kLanes * j;
+      const int r = lane + 32 * j;
       if (r >= rows) break;
       if (!one_word) load_row<S>(sm.mean + (r % words) * kRow, mean);
       float p[S];
@@ -130,7 +124,7 @@ va_detect_kernel(const float* __restrict__ y, const float* __restrict__ mu,
           *reinterpret_cast<float4*>(row + s) = make_float4(p[s], p[s + 1], p[s + 2], p[s + 3]);
       }
     }
-    warp_arrive(&sm.bar.full[slot % kStages]);
+    mbar_arrive(&sm.bar.full[slot % kStages]);
 #pragma unroll
     for (int j = 0; j < kRowsPerLane; ++j) ycur[j] = ynext[j];
   }

@@ -10,17 +10,18 @@
 // bytes of y and bits: the two products on the bf16 tensor cores and, once
 // they are there, the 100 sigmoids per symbol on the special-function
 // units. At the protocol's W = 300, the latency of each word's 136-step
-// chain as well.
-// What the design does about it (prior_ring.cuh): a block is one producer
-// warpgroup and one chain warp. The warpgroup computes the priors of the
-// next slot of (step, word) symbols, 64 per wgmma tile (viterbinet_mlp.cuh),
-// into a ring in shared memory; the chain warp's lanes, one per word, run
-// the ACS over the slot that has arrived, so the MLP and the chain overlap
-// even with one block on an SM. A slot holds up to 128 symbols of the
-// block's words, tiled over its live symbols only, so a partial last slot
-// costs its live tiles. A block holds ceil(W / SMs) words (at most 32):
-// W = 300 spreads over 100 SMs, W = 65536 fills every chain lane and every
-// tile. Any W and T: the ragged edges are masked.
+// chain and of the first slot's tiles as well.
+// What the design does about it (prior_ring.cuh, viterbinet_mlp.cuh): a
+// block is two producer warpgroups and one chain warp. Each warpgroup
+// computes one 64-symbol wgmma tile of the next slot of (step, word)
+// symbols into a ring in shared memory, its samples loaded one slot ahead;
+// the chain warp's lanes, one per word, run the ACS over the slot that has
+// arrived, so the MLP and the chain overlap even with one block on an SM.
+// A slot holds up to 128 symbols of the block's words and a warpgroup whose
+// tile holds no live symbol skips it, so a partial last slot costs its live
+// tiles. A block holds ceil(W / SMs) words (at most 32): W = 300 spreads
+// over 100 SMs, W = 65536 fills every chain lane and every tile. Any W and
+// T: the ragged edges are masked.
 #include <cuda_runtime.h>
 
 #include "prior_ring.cuh"
@@ -65,7 +66,7 @@ viterbinet_detect_kernel(const float* __restrict__ y, const float* __restrict__ 
   const long w0 = static_cast<long>(blockIdx.x) * words_per_block;
   const int words = static_cast<int>(min(static_cast<long>(words_per_block), W - w0));
   load_mlp<S>(sm.mlp, w1, b1, w2, b2, w3, b3, tid, kThreads);
-  if (tid == 0) ring_init(sm.bar, kProducers / 32 * kWarpArrivals, kWarpArrivals);
+  if (tid == 0) ring_init(sm.bar, kProducers, 32);
   __syncthreads();
 
   if (tid >= kProducers) {
@@ -96,7 +97,7 @@ viterbinet_detect_kernel(const float* __restrict__ y, const float* __restrict__ 
         if (rb < rows) *reinterpret_cast<float2*>(dst + rb * kRow + col) = make_float2(pb[j], pb[j + 1]);
       }
     }
-    warp_arrive(&sm.bar.full[slot % kStages]);
+    mbar_arrive(&sm.bar.full[slot % kStages]);
     ya = na;
     yb = nb;
   }

@@ -1,9 +1,7 @@
 """Build K1 and K2 with the compile-time choices their sources leave open
 and measure each on a card: the ACS step (ACS_STEP: csrc/acs.cuh's tree
-`acs_step` or `acs_step_linear`), the ring's depth (RING_STAGES,
-csrc/prior_ring.cuh), K1's sigmoid form (VNET_SIGMOID 0, 1, 2;
-csrc/viterbinet_mlp.cuh), and K2's slot of 64 symbols instead of 128 (a
-launch choice of kernels/acs.py). For each build: the bit mismatch against the
+`acs_step` or `acs_step_linear`) and K1's sigmoid form (VNET_SIGMOID 0, 1,
+2; csrc/viterbinet_mlp.cuh). For each build: the bit mismatch against the
 plain version, the device time (a CUDA graph of back-to-back calls, in turns
 v0 v1 ... v1 v0), and the SASS of its S = 16 kernel as cuobjdump prints it
 (instructions in all and by opcode, written to chiprun_out/ with the full
@@ -35,17 +33,13 @@ smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(smoke)
 
 OUT_DIR = ROOT / "chiprun_out" / "kernel_variants"
-# library -> (variant label, -D flags, kernels/acs.py attributes to set)
+# library -> (variant label, -D flags)
 VARIANTS = {
-    "va_detect": [("tree", [], {}), ("linear", ["-DACS_STEP=acs_step_linear"], {}),
-                  ("elected arrivals", ["-DRING_ELECT=1"], {}),
-                  ("2 producer warps", ["-DVA_PRODUCER_WARPS=2"], {}),
-                  ("2 producer warps, elected", ["-DVA_PRODUCER_WARPS=2", "-DRING_ELECT=1"], {})],
-    "viterbinet_detect": [("tree, sigmoid 2", [], {}),
-                          ("linear, sigmoid 2", ["-DACS_STEP=acs_step_linear"], {}),
-                          ("tree, sigmoid 0", ["-DVNET_SIGMOID=0"], {}),
-                          ("tree, sigmoid 1", ["-DVNET_SIGMOID=1"], {}),
-                          ("elected arrivals", ["-DRING_ELECT=1"], {})],
+    "va_detect": [("tree", []), ("linear", ["-DACS_STEP=acs_step_linear"])],
+    "viterbinet_detect": [("tree, sigmoid 2", []),
+                          ("linear, sigmoid 2", ["-DACS_STEP=acs_step_linear"]),
+                          ("tree, sigmoid 0", ["-DVNET_SIGMOID=0"]),
+                          ("tree, sigmoid 1", ["-DVNET_SIGMOID=1"])],
 }
 SHAPES = {"va_detect": ((1, 136), (300, 136), (65536, 136)),
           "viterbinet_detect": ((300, 136), (65536, 136))}
@@ -65,20 +59,13 @@ def build(name: str, defines: list, build_dir: Path) -> Path:
     return target
 
 
-DEFAULTS = {"SLOT_ROWS": acs.SLOT_ROWS}
-
-
-def use(name: str, path: Path, attrs: dict) -> None:
-    """Point the wrapper of `name` at the library at `path`, with the
-    launch attributes `attrs` of kernels/acs.py (the rest at their
-    defaults)."""
+def use(name: str, path: Path) -> None:
+    """Point the wrapper of `name` at the library at `path`."""
     lib = ctypes.CDLL(str(path))
     fn = getattr(lib, name)
     fn.argtypes = acs._SIGNATURES[name]
     fn.restype = ctypes.c_int
     acs._loaded[name] = lib
-    for key, value in {**DEFAULTS, **attrs}.items():
-        setattr(acs, key, value)
 
 
 def sass_profile(path: Path, kernel: str, label: str) -> dict:
@@ -113,8 +100,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         build_dir = Path(tmp)
         for name, variants in VARIANTS.items():
-            paths = {label: build(name, defines, build_dir) for label, defines, _ in variants}
-            attrs = {label: a for label, _, a in variants}
+            paths = {label: build(name, defines, build_dir) for label, defines in variants}
             kernel = "va_detect_kernel" if name == "va_detect" else "viterbinet_detect_kernel"
             inputs = {shape: smoke.kernel_inputs(*shape, g) for shape in SHAPES[name]}
             if name == "va_detect":
@@ -134,7 +120,7 @@ def main() -> int:
             want_wide = plain(*wide)
             rows = {}
             for label, path in paths.items():
-                use(name, path, attrs[label])
+                use(name, path)
                 mismatch = {f"{W}x{T}": float((run(*inputs[(W, T)]) != want[(W, T)]).float().mean())
                             for W, T in inputs}
                 mismatch["4096x136"] = float((run(*wide) != want_wide).float().mean())
@@ -147,7 +133,7 @@ def main() -> int:
                       f"{rows[label]['sass']['instructions']} instructions", flush=True)
             order = list(paths) + list(reversed(paths))  # in turns
             for label in order:
-                use(name, paths[label], attrs[label])
+                use(name, paths[label])
                 for (W, T), (y, mu) in inputs.items():
                     ms = smoke.graph_ms(lambda: run(y, mu))
                     rows[label]["ms"].setdefault(f"{W}x{T}", []).append(ms)
@@ -155,8 +141,6 @@ def main() -> int:
                           flush=True)
             report[name] = rows
             acs._loaded.pop(name, None)
-            for key, value in DEFAULTS.items():
-                setattr(acs, key, value)
     (OUT_DIR / "report.json").write_text(json.dumps(report, indent=1))
     print(json.dumps({k: {lab: {"ms": r["ms"], "mismatch": r["mismatch"],
                                 "instructions": r["sass"]["instructions"]}

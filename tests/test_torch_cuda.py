@@ -79,23 +79,17 @@ def test_viterbinet_kernel_matches_plain_at_every_S(gen, S, W, T):
     assert torch.equal(got, again)
 
 
-# one tensor-core tile of priors against the plain version's (TF32 off):
-# bf16 operands with f32 sums in another order, and an h1 whose sigmoid
-# lands on a bf16 rounding boundary may round the other way, which moves a
-# prior by about one bf16 ulp of h1 times a weight of W2 and W3
-TILE_TOL = 5e-3
-
-
 @pytest.mark.parametrize("S", [2, 4, 8, 16])
 def test_tensor_core_tile_priors_match_plain(gen, S):
     """One 64-symbol wgmma tile (csrc/viterbinet_mlp.cuh::mlp_tile, the code
-    K1 and K4 run) against `_bf16_priors` on the same samples."""
+    K1 and K4 run) against `_bf16_priors` on the same samples, within
+    chip_smoke.TILE_TOL (its comment gives the reason)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     model = viterbinet.init_params(S, gen, device="cuda")
     y = 2 * torch.randn(64, generator=gen, device="cuda")
     got = acs.viterbinet_tile_priors(model, y)
     want = acs._bf16_priors(model, y[None]).reshape(64, S)
-    assert float((got - want).abs().max()) <= TILE_TOL
+    assert float((got - want).abs().max()) <= chip_smoke.TILE_TOL
 
 
 def test_kernels_break_exact_ties_toward_state_zero(gen):

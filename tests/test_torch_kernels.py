@@ -151,6 +151,8 @@ def test_wrappers_never_fall_back_off_the_cpu():
         tacs.fused_va_detect(y, mu)
     with pytest.raises(ValueError, match="params on"):
         tacs.fused_viterbinet_detect(tvnet.ViterbiNet(16, device="cpu"), y)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tacs.viterbinet_tile_priors(tvnet.ViterbiNet(16, device="cpu"), torch.zeros(64))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tacs._library("va_detect")
