@@ -4,10 +4,10 @@ and measure each on a card: the ACS step (ACS_STEP: csrc/acs.cuh's tree
 2; csrc/viterbinet_mlp.cuh). For each build: the bit mismatch against the
 plain version, the device time (a CUDA graph of back-to-back calls, in turns
 v0 v1 ... v1 v0), and the SASS of its S = 16 kernel as cuobjdump prints it
-(instructions in all and by opcode, written to chiprun_out/ with the full
-listing).
+(instructions in all and by opcode, written with the full listing and a
+report.json to OUT_DIR, results/kernel_variants unless given).
 
-    env PYTHONPATH=. python3 scripts/torch_kernel_variants.py
+    env PYTHONPATH=. python3 scripts/torch_kernel_variants.py [OUT_DIR]
 
 The package's own build (no define) is the first variant of each group.
 """
@@ -32,7 +32,7 @@ _spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.
 smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(smoke)
 
-OUT_DIR = ROOT / "chiprun_out" / "kernel_variants"
+OUT_DIR = Path(sys.argv[1]) if len(sys.argv) > 1 else ROOT / "results" / "kernel_variants"
 # library -> (variant label, -D flags)
 VARIANTS = {
     "va_detect": [("tree", []), ("linear", ["-DACS_STEP=acs_step_linear"])],
