@@ -124,10 +124,19 @@ K6_WORDS = tuple(range(1, 10))  # data blocks of adapt_inputs' 10 dB batch
 # after 40 + 40 steps on each (T, seed) word, the kernel's distance from a
 # float64 run of the plain version's arithmetic is held within
 # K6_WITNESS_MULTIPLE times the f32 plain version's distance plus
-# K6_WITNESS_FLOOR, as tests/test_torch_kernels.py holds the f32 plain
-# version to the JAX kernel's distance on the CPU
+# K6_WITNESS_FLOOR (tests/test_torch_kernels.py holds the f32 plain version
+# to the JAX kernel's distance on the same words on the CPU). Measured on an
+# H100 80GB HBM3 at 700 W (PERF.md section 6): the kernel reads 0.29 to 3.62
+# times the plain version's distance; a run with one Adam constant off
+# (K6_FAULTS) in its place reads 185 times or more on every witness word
+# (scripts/torch_kernel_probe.py). 16 leaves 4.4x room above the first and
+# 11x below the second.
 K6_WITNESS_WORDS = ((40, 0), (40, 1), (33, 2), (40, 3), (40, 4), (136, 0), (64, 5))
-K6_WITNESS_MULTIPLE, K6_WITNESS_FLOOR = 4.0, 1e-6
+K6_WITNESS_MULTIPLE, K6_WITNESS_FLOOR = 16.0, 1e-6
+# faulty f32 runs the witness must reject: the plain version with lr, eps or
+# b2 off, which is what a kernel with that constant wrong computes
+K6_FAULTS = {"lr 1.0001e-3": {"lr": 1.0001e-3}, "eps 1e-7": {"lr": 1e-3, "eps": 1e-7},
+             "b2 0.998": {"lr": 1e-3, "b2": 0.998}}
 CARD_CPU_BLOCKS = 25
 # card against CPU over the first 25 meta-mode blocks: each block's SER
 # within two of its 120 bits, the mean over the data blocks within 2e-3
@@ -394,17 +403,22 @@ def k6_witness_word(T: int, seed: int, device: str = "cuda"):
     return params, y.to(device), calculate_states(4, bits).to(device)
 
 
-def k6_witness(params: dict, y, states, steps=(40, 40)) -> dict:
+def k6_witness(params: dict, y, states, steps=(40, 40), fault: dict | None = None) -> dict:
     """K6, its f32 plain version and a float64 run of the plain version's
     arithmetic from the same params and zero moments, called once per entry
-    of `steps`; returns max |dparam| between each pair after the last call."""
+    of `steps`; returns max |dparam| between each pair after the last call.
+    With `fault` (an entry of K6_FAULTS), the f32 plain version with those
+    arguments stands where K6 stood."""
     opt = Optimizer("Adam", 1e-3)
     runs = {}
     for name, dtype in (("kernel", torch.float32), ("plain", torch.float32), ("f64", torch.float64)):
         p = {k: v.detach().to(dtype=dtype, copy=True) for k, v in params.items()}
         runs[name] = (p, opt.init(p))
     for n in steps:
-        online_sgd.online_adapt_viterbinet(*runs["kernel"], y, states, n, 1e-3)
+        if fault is None:
+            online_sgd.online_adapt_viterbinet(*runs["kernel"], y, states, n, 1e-3)
+        else:
+            online_sgd.online_adapt_viterbinet_plain(*runs["kernel"], y, states, n, **fault)
         online_sgd.online_adapt_viterbinet_plain(*runs["plain"], y, states, n, 1e-3)
         online_sgd.online_adapt_viterbinet_plain(*runs["f64"], y.double(), states, n, 1e-3)
 

@@ -18,13 +18,12 @@
 // lowest index among exact ties (renormalisation pins the minimum to 0.0, so
 // ties do happen).
 //
-// acs_step_linear is the same step with a linear readout over all S states
-// and a running minimum, the same bits; no kernel uses it by default.
-// scripts/torch_kernel_variants.py builds K1 and K2 with it: on an H100 the
-// tree step takes ~27% less time than the linear one in K2 at one word and
-// at 300 words, ~16% less in K1 at 300 words and 4-8% less at 65536 words
-// (PERF.md). (When K2 computed its priors inline on the chain, the tree
-// form was the slower one there.)
+// Every kernel takes this step. Against a linear readout over all S states
+// with a running minimum (the same bits), it took ~23% less time in K2 at
+// one word, 8% less at 65536 words and ~17% less in K1 at 300 words on an
+// H100 80GB HBM3 at 700 W; the linear readout is 176 FSETP and 297 FSEL in
+// K2's S = 16 SASS against the tree's 70 FSETP, 60 FSEL and 75 SEL (PERF.md
+// section 6).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -70,32 +69,4 @@ __device__ __forceinline__ float acs_step(float (&m)[S], const float (&p)[S]) {
     m[s + H] = v;
   }
   return static_cast<float>(bit[0]);
-}
-
-template <int S>
-__device__ __forceinline__ float acs_step_linear(float (&m)[S], const float (&p)[S]) {
-  // readout: strict < keeps the lowest index among exact ties
-  float best = m[0];
-  int idx = 0;
-#pragma unroll
-  for (int s = 1; s < S; ++s) {
-    if (m[s] < best) {
-      best = m[s];
-      idx = s;
-    }
-  }
-  float pair[S / 2];
-  float mn = INFINITY;
-#pragma unroll
-  for (int s = 0; s < S / 2; ++s) {
-    pair[s] = fminf(__fadd_rn(m[2 * s], p[2 * s]), __fadd_rn(m[2 * s + 1], p[2 * s + 1]));
-    mn = fminf(mn, pair[s]);
-  }
-#pragma unroll
-  for (int s = 0; s < S / 2; ++s) {
-    const float v = __fsub_rn(pair[s], mn);
-    m[s] = v;
-    m[s + S / 2] = v;
-  }
-  return static_cast<float>(idx & 1);
 }

@@ -33,12 +33,6 @@
 
 #include "acs.cuh"
 
-// The ACS step of both kernels; a build may define ACS_STEP=acs_step_linear
-// (scripts/torch_kernel_variants.py times the two).
-#ifndef ACS_STEP
-#define ACS_STEP acs_step
-#endif
-
 constexpr int kStages = 3;       // slots in the ring
 constexpr int kChainWords = 32;  // words of a block at most: one chain warp
 constexpr int kSlotRows = 128;   // symbols of a slot at most: slot_steps * words
@@ -146,7 +140,7 @@ __device__ __forceinline__ void run_chains(const float* ring, RingBarriers& b, i
           for (int i = 0; i < 4; ++i) {
             float p[S];
             load_row<S>(row + (c + i) * stride, p);
-            four[i] = ACS_STEP<S>(m, p);
+            four[i] = acs_step<S>(m, p);
           }
           *reinterpret_cast<float4*>(bits + t0 + c) = make_float4(four[0], four[1], four[2], four[3]);
         }
@@ -155,7 +149,7 @@ __device__ __forceinline__ void run_chains(const float* ring, RingBarriers& b, i
         for (int c = 0; c < steps; ++c) {
           float p[S];
           load_row<S>(row + c * stride, p);
-          bits[t0 + c] = ACS_STEP<S>(m, p);
+          bits[t0 + c] = acs_step<S>(m, p);
         }
       }
     }

@@ -19,9 +19,10 @@
 // over the slot that has arrived (the tree step of acs.cuh), with nothing
 // but loads from shared memory on their chain. The producer loads its
 // samples one slot ahead, in 16-byte loads where a lane's rows are 4 steps
-// of one word, and the chain stores its bits 4 steps at a time. A block
-// holds ceil(W / SMs) words (at most 32), so W = 300 spreads over 100 SMs
-// and W = 1 is one block. Any W and T: the ragged edges are masked.
+// of one word and y is 16-byte aligned, and the chain stores its bits 4
+// steps at a time. A block holds ceil(W / SMs) words (at most 32), so W =
+// 300 spreads over 100 SMs and W = 1 is one block. Any W and T: the ragged
+// edges are masked.
 //
 // Rounding: the prior is written with explicit round-to-nearest intrinsics
 // so nvcc cannot contract it into an FMA; it rounds like the plain PyTorch
@@ -37,16 +38,17 @@ constexpr int kThreads = 64;  // warp 0: the chains; warp 1: the producer
 // float32(log(sqrt(2 pi))), the constant the PyTorch and JAX versions subtract
 constexpr float kLogSqrt2Pi = 0x1.d67f1cp-1f;
 
-// the samples of rows lane, lane + 32, ... of slot `slot` (0 past the end)
+// the samples of rows lane, lane + 32, ... of slot `slot` (0 past the end);
+// y16: y is 16-byte aligned
 template <int N>
 __device__ __forceinline__ void load_samples(const float* __restrict__ y, float (&v)[N], int slot,
                                              int n_slots, long w0, int words, int slot_steps,
-                                             int T, int lane) {
+                                             int T, int lane, bool y16) {
   const int t0 = slot * slot_steps;
   const int rows = slot < n_slots ? min(slot_steps, T - t0) * words : 0;
-  if (N == 4 && words == kChainWords && slot_steps == 4 && T % 4 == 0) {
+  if (N == 4 && words == kChainWords && slot_steps == 4 && T % 4 == 0 && y16) {
     // a full block at large W: lane l's rows are word l's 4 steps, one
-    // 16-byte load (the rows are 16-byte aligned)
+    // 16-byte load (with y aligned and T % 4 == 0, so are the rows)
     const float4 q = rows > 0 ? *reinterpret_cast<const float4*>(y + (w0 + lane) * T + t0)
                               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     v[0] = q.x;
@@ -73,7 +75,8 @@ struct Smem {
 template <int S>
 __global__ void __launch_bounds__(kThreads)
 va_detect_kernel(const float* __restrict__ y, const float* __restrict__ mu,
-                 float* __restrict__ out, int W, int T, int words_per_block, int slot_steps) {
+                 float* __restrict__ out, int W, int T, int words_per_block, int slot_steps,
+                 bool y16) {
   constexpr int kRow = kStride<S>();
   __shared__ __align__(16) Smem<S> sm;
   const int tid = threadIdx.x;
@@ -98,9 +101,9 @@ va_detect_kernel(const float* __restrict__ y, const float* __restrict__ mu,
   float mean[S];
   load_row<S>(sm.mean + (lane % words) * kRow, mean);
   float ycur[kRowsPerLane], ynext[kRowsPerLane];
-  load_samples<kRowsPerLane>(y, ycur, 0, n_slots, w0, words, slot_steps, T, lane);
+  load_samples<kRowsPerLane>(y, ycur, 0, n_slots, w0, words, slot_steps, T, lane, y16);
   for (int slot = 0; slot < n_slots; ++slot) {
-    load_samples<kRowsPerLane>(y, ynext, slot + 1, n_slots, w0, words, slot_steps, T, lane);
+    load_samples<kRowsPerLane>(y, ynext, slot + 1, n_slots, w0, words, slot_steps, T, lane, y16);
     ring_acquire(sm.bar, slot);
     const int rows = min(slot_steps, T - slot * slot_steps) * words;
     float* dst = sm.ring + (slot % kStages) * kSlotRows * kRow;
@@ -134,8 +137,10 @@ template <int S>
 void launch(const float* y, const float* mu, float* out, int W, int T, int words_per_block,
             int slot_steps, cudaStream_t stream) {
   const int blocks = (W + words_per_block - 1) / words_per_block;
+  // y may be a view at any float offset; out is the wrapper's own tensor
+  const bool y16 = reinterpret_cast<uintptr_t>(y) % 16 == 0;
   va_detect_kernel<S><<<blocks, kThreads, 0, stream>>>(y, mu, out, W, T, words_per_block,
-                                                        slot_steps);
+                                                        slot_steps, y16);
 }
 
 }  // namespace

@@ -51,27 +51,21 @@ __host__ __device__ constexpr int kPriorCols() {  // prior columns a thread hold
   return kN2<S>() / 4;
 }
 
-// The sigmoid of the first layer. 0: IEEE divide and accurate expf, as the
-// plain version; 1: __expf and an approximate reciprocal; 2 (the default):
-// 0.5 tanh.approx(a / 2) + 0.5, one special-function result per unit. h1 is
-// rounded to bf16 right after, which absorbs most of the approximation; all
-// three gave < 1e-6 bit mismatch against the plain version on an H100
-// (PERF.md). A build may define VNET_SIGMOID (scripts/torch_kernel_variants.py
-// measures the forms).
-#ifndef VNET_SIGMOID
-#define VNET_SIGMOID 2
-#endif
-
+// The sigmoid of the first layer: 0.5 tanh.approx(a / 2) + 0.5, one
+// special-function result per unit. h1 is rounded to bf16 right after, which
+// absorbs most of the approximation, but not all: measured on an H100 80GB
+// HBM3 at 700 W (PERF.md section 6), K1's bit mismatch against the plain
+// version reaches 2.45e-4 on chip_smoke.py's seeded network (up to 3.6e-6
+// with the IEEE form 1 / (1 + expf(-a)) the plain version takes), and one
+// tile's priors lie up to 3.1e-4 from the plain ones (3e-8 with the IEEE
+// form). On another seeded network the IEEE form and __expf with an
+// approximate reciprocal gave no mismatch and this form 1.1e-7. The trade:
+// K1 at 65536 x 136 took 0.567 ms with this form, 0.81 with __expf and 1.51
+// with the IEEE form, all well inside the 1e-3 bit contract.
 __device__ __forceinline__ float sigmoid_f32(float a) {
-#if VNET_SIGMOID == 0
-  return 1.0f / (1.0f + expf(-a));
-#elif VNET_SIGMOID == 1
-  return __fdividef(1.0f, __fadd_rn(1.0f, __expf(-a)));
-#else
   float t;
   asm("tanh.approx.f32 %0, %1;" : "=f"(t) : "f"(__fmul_rn(0.5f, a)));
   return __fmaf_rn(0.5f, t, 0.5f);
-#endif
 }
 
 // Index of element (n, k) of an N x K bf16 operand in the K-major,

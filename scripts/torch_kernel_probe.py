@@ -6,7 +6,8 @@ against its plain version; K5 at every S and a few shapes; K6 after 40
 steps against its plain version and, after 40 + 40, against a float64 run
 of the plain version's arithmetic (its distance within a multiple of the f32
 plain version's, chip_smoke.py's K6_WITNESS_*), on a few (T, S) words and
-the witness words; two K6 launches with each other; then time K1, K2 and K4
+the witness words, where runs with one Adam constant off (K6_FAULTS) must
+fail it; two K6 launches with each other; then time K1, K2 and K4
 at the protocol's 300 x 136, K1 and K2 at 65536 x 136, K2 and K5 at the
 engine's 1 x 136, and K6 on the device (a CUDA graph of back-to-back calls).
 
@@ -66,14 +67,17 @@ def max_diff(a, b):
     return max(float((a[k].double() - b[k].double()).abs().max()) for k in a)
 
 
-def check_witness(label, p, y, states) -> bool:
-    d = smoke.k6_witness(p, y, states)
+def check_witness(label, p, y, states, fault=None) -> bool:
+    """True if K6 holds the float64 witness, or if the faulty run named by
+    `fault` (a key of K6_FAULTS), standing for K6, fails it."""
+    d = smoke.k6_witness(p, y, states, fault=smoke.K6_FAULTS.get(fault))
     held = smoke.witness_holds(d)
-    print(f"K6 {label} resumed 40 + 40: vs float64 kernel {d['kernel_f64']:.3e}, f32 plain "
-          f"{d['plain_f64']:.3e} (ratio {d['kernel_f64'] / d['plain_f64']:.2f}); kernel vs f32 "
+    run = f"faulty run ({fault})" if fault else "kernel"
+    print(f"K6 {label} resumed 40 + 40: vs float64 {run} {d['kernel_f64']:.3e}, f32 plain "
+          f"{d['plain_f64']:.3e} (ratio {d['kernel_f64'] / d['plain_f64']:.2f}); {run} vs f32 "
           f"plain {d['kernel_plain']:.3e}; {'within' if held else 'EXCEEDS'} "
           f"{smoke.K6_WITNESS_MULTIPLE:g} x plain + {smoke.K6_WITNESS_FLOOR:g}", flush=True)
-    return held
+    return held != (fault is not None)
 
 
 def check_k6(S, T, g) -> bool:
@@ -161,7 +165,9 @@ def main() -> int:
         for S, T in K6_CASES:  # the first is the seed-0 word at T = 136
             ok &= check_k6(S, T, g)
         for T, seed in smoke.K6_WITNESS_WORDS:
-            ok &= check_witness(f"witness word T={T} seed={seed}", *smoke.k6_witness_word(T, seed))
+            inputs = smoke.k6_witness_word(T, seed)
+            for fault in (None, *smoke.K6_FAULTS):
+                ok &= check_witness(f"witness word T={T} seed={seed}", *inputs, fault=fault)
         ok &= check_detect(torch.Generator(device="cuda").manual_seed(1))
 
     model = viterbinet.init_params(16, g, device="cuda")

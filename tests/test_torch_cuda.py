@@ -79,6 +79,23 @@ def test_viterbinet_kernel_matches_plain_at_every_S(gen, S, W, T):
     assert torch.equal(got, again)
 
 
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_kernels_read_unaligned_views(gen, offset):
+    """y as a contiguous view at a float offset that is no multiple of 4, at
+    a width that fills every block (W = 4224 = 32 words x 132 SMs), where K2
+    otherwise loads 4 samples per 16-byte load: K2 gives the plain version's
+    bits and K1 the bits of an aligned copy."""
+    W, T = 4224, 136
+    y, mu = chip_smoke.kernel_inputs(W, T, gen)
+    view = torch.empty(W * T + offset, device="cuda")[offset:].view(W, T)
+    view.copy_(y)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    assert torch.equal(acs.fused_va_detect(view, mu), acs.fused_va_detect_plain(y, mu))
+    model = viterbinet.init_params(16, gen, device="cuda")
+    assert torch.equal(acs.fused_viterbinet_detect(model, view),
+                       acs.fused_viterbinet_detect(model, y))
+
+
 @pytest.mark.parametrize("S", [2, 4, 8, 16])
 def test_tensor_core_tile_priors_match_plain(gen, S):
     """One 64-symbol wgmma tile (csrc/viterbinet_mlp.cuh::mlp_tile, the code
@@ -190,6 +207,17 @@ def test_online_adapt_kernel_drift_is_rounding(gen, word):
     inputs = _probe_seed0_word() if word == "probe" else chip_smoke.k6_witness_word(*word)
     d = chip_smoke.k6_witness(*inputs)
     assert chip_smoke.witness_holds(d), d
+
+
+@pytest.mark.parametrize("fault", sorted(chip_smoke.K6_FAULTS))
+def test_online_adapt_witness_rejects_faulty_runs(gen, fault):
+    """The same witness fails on every witness word when the f32 run in K6's
+    place has one Adam constant off (chip_smoke.K6_FAULTS)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for word in chip_smoke.K6_WITNESS_WORDS:
+        d = chip_smoke.k6_witness(*chip_smoke.k6_witness_word(*word),
+                                  fault=chip_smoke.K6_FAULTS[fault])
+        assert not chip_smoke.witness_holds(d), (word, d)
 
 
 def _channel_words(W, gen):

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from metaviterbinet_tpu.kernels import acs as jacs
 from metaviterbinet_tpu.models import va as jva
 from metaviterbinet_tpu.models import viterbinet as jvnet
@@ -249,20 +250,19 @@ def test_online_adapt_plain_matches_jax_kernel(T, seed):
         np.testing.assert_allclose(p[k].detach().numpy(), np.asarray(want2[k]), atol=2e-5, rtol=0)
 
 
-# The float64 witness of K6's drift: after 40 + 40 steps the port's f32
-# plain version is within WITNESS_MULTIPLE times the JAX kernel's own
-# distance from float64, plus WITNESS_FLOOR. Measured on these words (on the
-# CPU): the port's distance is 0.00 to 1.31 times the JAX kernel's, largest
-# at T = 40 seed 3 (1.07e-6 against 8.19e-7); on seed 0 at T = 40 the JAX
-# kernel ends 9.5e-4 from float64 and the port 2.3e-6. The multiple leaves
-# 3x room over the largest ratio; the floor, a fifth of the 40-step contract
-# (5e-6), covers words on which the JAX kernel lands within rounding of
-# float64.
-K6_WITNESS_WORDS = [(40, 0), (40, 1), (33, 2), (40, 3), (40, 4), (136, 0), (64, 5)]
-WITNESS_MULTIPLE, WITNESS_FLOOR = 4.0, 1e-6
+# The float64 witness of K6's drift on the CPU: after 40 + 40 steps on each
+# of chip_smoke.K6_WITNESS_WORDS the port's f32 plain version is within
+# JAX_WITNESS_MULTIPLE times the JAX kernel's own distance from float64,
+# plus chip_smoke.K6_WITNESS_FLOOR. Measured on these words (on the CPU): the
+# port's distance is 0.00 to 1.31 times the JAX kernel's, largest at T = 40
+# seed 3 (1.07e-6 against 8.19e-7); on seed 0 at T = 40 the JAX kernel ends
+# 9.5e-4 from float64 and the port 2.3e-6. The multiple leaves 3x room over
+# the largest ratio; the floor, a fifth of the 40-step contract (5e-6),
+# covers words on which the JAX kernel lands within rounding of float64.
+JAX_WITNESS_MULTIPLE = 4.0
 
 
-@pytest.mark.parametrize("T,seed", K6_WITNESS_WORDS)
+@pytest.mark.parametrize("T,seed", chip_smoke.K6_WITNESS_WORDS)
 def test_online_adapt_f32_drift_is_rounding(T, seed):
     """The JAX kernel (interpret mode), the port's f32 plain version and a
     float64 run of the same plain arithmetic, from the same params and zero
@@ -296,7 +296,21 @@ def test_online_adapt_f32_drift_is_rounding(T, seed):
     jax_f64 = dist(want)
     port_f64 = dist({k: v.numpy() for k, v in runs[torch.float32].items()})
     assert np.isfinite(jax_f64) and jax_f64 > 0
-    assert port_f64 <= WITNESS_MULTIPLE * jax_f64 + WITNESS_FLOOR, (port_f64, jax_f64)
+    limit = JAX_WITNESS_MULTIPLE * jax_f64 + chip_smoke.K6_WITNESS_FLOOR
+    assert port_f64 <= limit, (port_f64, jax_f64)
+
+
+@pytest.mark.parametrize("fault", sorted(chip_smoke.K6_FAULTS))
+def test_k6_witness_rejects_faulty_runs(fault):
+    """The card's witness of K6 (chip_smoke.k6_witness, witness_holds) on
+    the CPU, where K6's wrapper runs its plain version: it holds there, and
+    fails on every witness word when the run in K6's place has one Adam
+    constant off (chip_smoke.K6_FAULTS)."""
+    for T, seed in chip_smoke.K6_WITNESS_WORDS:
+        inputs = chip_smoke.k6_witness_word(T, seed, "cpu")
+        assert chip_smoke.witness_holds(chip_smoke.k6_witness(*inputs))
+        d = chip_smoke.k6_witness(*inputs, fault=chip_smoke.K6_FAULTS[fault])
+        assert not chip_smoke.witness_holds(d), ((T, seed), d)
 
 
 def test_online_adapt_plain_matches_autograd_adam():
