@@ -15,10 +15,11 @@ Phases, each of which fails the run on error:
               same inputs bit-identical, and one tensor-core tile of K1's
               priors against the plain version's; K4 (K1 over overlap-save time
               chunks, overlap 32, < 1e-3) at 300 x 136 with 2 and 4 chunks,
-              4096 x 136 with 4 and 1000 x 136 with 2, and bit-identical to
-              K1 (trained params) on channel words at 300 x 136 with 2 and 4
-              chunks; K5 (ACS over priors from the f32 MLP, bit-identical)
-              at the engine's 1 x 136, 300 x 136 and 4096 x 41; K6 (fused
+              4096 x 136 with 4 and 1000 x 136 with 2, two launches
+              bit-identical, and bit-identical to K1 (trained params) on
+              channel words at 300 x 136 with 2 and 4 chunks; K5 (ACS over
+              priors from the f32 MLP, bit-identical) at the engine's
+              1 x 136, 300 x 136 and 4096 x 41; K6 (fused
               online Adam) at T = 136 from the same params and moments: 40
               steps, a resumed second call of 40, and the protocol's 200
               steps on nine received words; and two K6 launches from the same
@@ -59,8 +60,10 @@ Phases, each of which fails the run on error:
   8. width    time the kernels and their plain versions on the device (a CUDA
               graph of back-to-back calls) and per eager call: K1 and K2 at
               300 x 136 and 65536 x 136, K2 at 1 x 136, K4 at 300 x 136 with
-              2 and 4 chunks and 65536 x 136 with 4, K5 at 1 x 136 and
-              300 x 136, K6 at
+              2 and 4 chunks and 65536 x 136 with 4 (beside K1 at the same
+              shape, K1's and K4's SFU floors and K4's chain floor: K5 over
+              the chunked chains' (W C) x (overlap + T / C) priors at 300
+              words), K5 at 1 x 136 and 300 x 136, K6 at
               T = 136 with 200 steps (with its cluster size, its bound at
               the cluster's share of the card and at one SM's, and its time
               per step);
@@ -106,6 +109,9 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_TC_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12
 N_SMS = 132
+# special-function results per clock per SM (an exp, a tanh or a
+# reciprocal each) and the boost clock, H100 SXM published figures
+SFU_PER_CLOCK_PER_SM, SM_CLOCK_HZ = 16, 1.98e9
 VA_BAND = (0.014036, 0.006)  # resources/reference_baselines.json va_full_csi coded_nsym2 10 dB
 # resources/reference_baselines.json by_word_campaign_snr10.mean_data_ber, the
 # mean of the reference's two seeds, with tests/test_parity_anchor.py's band
@@ -323,6 +329,13 @@ def chunked_bound_ms(W: int, T: int, C: int, S: int) -> tuple[float, str]:
     """Least time for fused_viterbinet_detect_chunked: vnet_bound_ms over
     the chunked_symbols count, y read and bits written once."""
     return vnet_bound_ms(W, T, S, chunked_symbols(W, T, C))
+
+
+def sfu_floor_ms(n_symbols: int) -> float:
+    """Least time for the 100 first-layer sigmoids of n symbols at one
+    special-function result each (K1's and K4's tanh.approx), on every SM
+    of the card at the published rate: a floor of the MLP, not measured."""
+    return 1e3 * n_symbols * viterbinet.HIDDEN1 / (SFU_PER_CLOCK_PER_SM * N_SMS * SM_CLOCK_HZ)
 
 
 def decode_bound_ms(W: int, T: int, S: int) -> tuple[float, str]:
@@ -567,9 +580,13 @@ def phase_kernels(model: viterbinet.ViterbiNet, trained: viterbinet.ViterbiNet,
     name = "fused_viterbinet_detect_chunked"
     for W, T, C in CHUNKED_CHECK_SHAPES:
         y = kernel_inputs(W, T, gen)[0]
+        got = acs.fused_viterbinet_detect_chunked(model, y, C)
         checks[(name, W, T, C)] = check_bits(
-            f"{name} C={C} overlap={OVERLAP}", W, T, acs.fused_viterbinet_detect_chunked(model, y, C),
+            f"{name} C={C} overlap={OVERLAP}", W, T, got,
             acs.fused_viterbinet_detect_chunked_plain(model, y, C), 1e-3)
+        check_bits(f"{name} C={C} overlap={OVERLAP}", W, T,
+                   acs.fused_viterbinet_detect_chunked(model, y, C), got, 0.0,
+                   against="a second launch from the same inputs")
     y = channel_words(PROTO_W, gen)
     k1_bits = acs.fused_viterbinet_detect(trained, y)
     for C in CHUNKS_EQUAL_TO_K1:
@@ -1060,6 +1077,9 @@ def phase_width(model: viterbinet.ViterbiNet, gen: torch.Generator, card: str) -
         record("fused_viterbinet_detect", W, lambda: acs.fused_viterbinet_detect(model, y),
                lambda: acs.fused_viterbinet_detect_plain(model, y),
                vnet_bound_ms(W, T_PROTO, 16), wide)
+        times[("fused_viterbinet_detect", W)]["sfu_floor_ms"] = sfu_floor_ms(W * T_PROTO)
+        print(f"fused_viterbinet_detect W={W}: SFU floor {sfu_floor_ms(W * T_PROTO):.5f} ms "
+              f"(100 sigmoids per symbol at {SFU_PER_CLOCK_PER_SM} per clock per SM, published)")
     y, mu = kernel_inputs(1, T_PROTO, gen)
     record("fused_va_detect", 1, lambda: acs.fused_va_detect(y, mu),
            lambda: acs.fused_va_detect_plain(y, mu), va_bound_ms(1, T_PROTO, 16))
@@ -1069,9 +1089,21 @@ def phase_width(model: viterbinet.ViterbiNet, gen: torch.Generator, card: str) -
                lambda: acs.fused_viterbinet_detect_chunked(model, y, C),
                lambda: acs.fused_viterbinet_detect_chunked_plain(model, y, C),
                chunked_bound_ms(W, T_PROTO, C, 16), W == WIDE_W, C=C)
+        row = times[("fused_viterbinet_detect_chunked", W, C)]
+        row["sfu_floor_ms"] = sfu_floor_ms(chunked_symbols(W, T_PROTO, C))
+        # the chain floor: K5 over priors of the chunked chains' shape, the
+        # ACS alone (at 65536 words that many priors make K5 bound by bytes)
+        row["chain_floor_ms"] = None
+        ext = OVERLAP + T_PROTO // C
+        if W == PROTO_W:
+            priors = torch.randn((W * C, ext, 16), generator=gen, device="cuda")
+            row["chain_floor_ms"] = graph_ms(lambda: acs.viterbi_decode_kernel(priors))
+            del priors
+        chain = "not measured" if row["chain_floor_ms"] is None else f"{row['chain_floor_ms']:.5f} ms"
         print(f"fused_viterbinet_detect_chunked W={W} C={C}: bound over "
               f"{chunked_symbols(W, T_PROTO, C)} symbols through the MLP and the ACS, "
-              f"{chunked_symbols(W, T_PROTO, C) / (W * T_PROTO):.4f}x K1's")
+              f"{chunked_symbols(W, T_PROTO, C) / (W * T_PROTO):.4f}x K1's; chain floor (K5 at "
+              f"{W * C} x {ext} priors) {chain}; SFU floor {row['sfu_floor_ms']:.5f} ms [{card}]")
     for W in (1, PROTO_W):
         priors = mlp_priors(model, kernel_inputs(W, T_PROTO, gen)[0])
         record("viterbi_decode_kernel", W, lambda: acs.viterbi_decode_kernel(priors),
@@ -1137,6 +1169,8 @@ def kernel_rows(checks: dict, sl: dict, online: dict, times: dict) -> list:
                 "bound_by_1": one["bound_by"], "checked_1": checks[(name, 1, T_PROTO)]})
         else:
             rows[-1]["tile_priors_max_abs_err"] = {S: checks[("tile", S)] for S in STATES}
+            rows[-1]["sfu_floor_ms"] = main_row["sfu_floor_ms"]
+            rows[-1]["sfu_floor_ms_65536"] = wide_row["sfu_floor_ms"]
     name = "fused_viterbinet_detect_chunked"
     main_row = times[(name, PROTO_W, 4)]
     rows.append({

@@ -10,13 +10,13 @@ Four hand-written CUDA kernels, one per source in csrc/:
   - `viterbi_decode_kernel` (csrc/viterbi_decode.cu) replaces
     metaviterbinet_tpu/kernels/acs.py::pallas_viterbi_decode.
 
-K1 and K2 are each a prior producer and a chain consumer in one block
-(csrc/prior_ring.cuh); `chain_geometry` sizes their blocks from W and the
-card's SM count. Each source in csrc/ (these four and
-kernels/online_sgd.py's) is compiled by nvcc for sm_90a into a shared
-library with a plain C interface, at the first CUDA call (or all together
-by `build_kernels`), into kernels/_build/, and loaded with ctypes. A
-wrapper launches its kernel
+K1, K2 and K4 are each a prior producer and a chain consumer in one block
+(csrc/prior_ring.cuh); `chain_geometry` sizes K1's and K2's blocks and
+`chunked_geometry` K4's from W and the card's SM count. Each source in
+csrc/ (these four and kernels/online_sgd.py's) is compiled by nvcc for
+sm_90a into a shared library with a plain C interface, at the first CUDA
+call (or all together by `build_kernels`), into kernels/_build/, and
+loaded with ctypes. A wrapper launches its kernel
 on the current stream for CUDA tensors and counts the launch in its
 `launches` attribute; for CPU tensors it runs the kernel's plain PyTorch
 version, which the tests and chip_smoke.py also hold the kernel against.
@@ -35,6 +35,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -53,7 +54,7 @@ _PTR, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "va_detect": (_PTR, _PTR, _PTR) + (_INT,) * 5 + (_PTR,),
     "viterbinet_detect": (_PTR,) * 8 + (_INT,) * 5 + (_PTR,),
-    "viterbinet_detect_chunked": (_PTR,) * 8 + (_INT,) * 5 + (_PTR,),
+    "viterbinet_detect_chunked": (_PTR,) * 8 + (_INT,) * 10 + (_PTR,),
     "viterbi_decode": (_PTR, _PTR, _INT, _INT, _INT, _PTR),
     "online_adapt": (_PTR,) * 20 + (_INT,) * 3 + (_F32,) * 9 + (_PTR,),
 }
@@ -133,7 +134,7 @@ def _check_f32(name: str, t: torch.Tensor, ndim: int, device: torch.device) -> N
         raise ValueError(f"{name}: tensor must be contiguous")
 
 
-# csrc/prior_ring.cuh: the words of a block (one chain warp) and the
+# csrc/prior_ring.cuh: the chains of a block (one chain warp) and the
 # symbols of a ring slot, at most
 CHAIN_WORDS, SLOT_ROWS = 32, 128
 VA_SLOT_STEPS = 32  # K2's steps per slot at most: its first slot is ready sooner
@@ -148,6 +149,49 @@ def chain_geometry(W: int, n_sms: int, max_slot_steps: int = SLOT_ROWS) -> tuple
     words = max(1, min(CHAIN_WORDS, -(-W // n_sms)))
     steps = min(max_slot_steps, SLOT_ROWS // words)
     return words, steps, -(-W // words)
+
+
+class ChunkedGeometry(NamedTuple):
+    """K4's launch (csrc/viterbinet_detect_chunked.cu)."""
+    chains: int      # chains of a chain set: the chain warp's live lanes
+    warm_steps: int  # warm-up steps of a ring slot
+    slot_steps: int  # stored steps of a ring slot
+    sets: int        # chain sets, W C / chains rounded up
+    blocks: int      # blocks, each taking every blocks-th set in turn
+    width: int       # floats per bit store
+
+
+K4_SLOT_ROWS = 192  # symbols of a K4 ring slot at most: one tile per producer warpgroup
+
+
+def warming_chains(chains: int, C: int) -> int:
+    """The chains of a K4 set of `chains` that run a warm-up: all but the
+    stream-head chunks where a set is whole words (C <= 32), else all."""
+    return chains - chains // C if C <= CHAIN_WORDS else chains
+
+
+def chunked_geometry(W: int, C: int, T: int, overlap: int, n_sms: int) -> ChunkedGeometry:
+    """K4's launch. ceil(W C / SMs) chains per set, rounded up to whole words
+    where C <= 32 (at most 32: one chain warp), so that small W spreads over
+    one block per SM and large W fills every chain lane; one block per SM at
+    most, which runs its sets one after another. A warm-up slot holds as
+    many steps of the set's warming chains as fit in K4_SLOT_ROWS symbols, a
+    stored slot as many steps of all its chains, a multiple of the store
+    width: the widest store (4, 2 or 1 floats) that divides the chunk length
+    T / C (csrc/prior_ring.cuh::store_width)."""
+    n = W * C
+    per = max(1, -(-n // n_sms))
+    if C <= CHAIN_WORDS:
+        chains = min(-(-per // C), CHAIN_WORDS // C) * C
+    else:
+        chains = min(CHAIN_WORDS, per)
+    Tc = T // C
+    width = 4 if Tc % 4 == 0 else 2 if Tc % 2 == 0 else 1
+    warming = warming_chains(chains, C)
+    warm = min(overlap, K4_SLOT_ROWS // warming) if warming else overlap
+    steps = K4_SLOT_ROWS // chains
+    sets = -(-n // chains)
+    return ChunkedGeometry(chains, warm, steps - steps % width, sets, min(sets, n_sms), width)
 
 
 @functools.lru_cache(maxsize=None)
@@ -376,7 +420,7 @@ def fused_viterbinet_detect_chunked(model: ViterbiNet, y: torch.Tensor, n_chunks
     A symbol's priors are bit-identical to K1's, so the bits equal
     `fused_viterbinet_detect` wherever the trellis forgets within `overlap`
     steps; on the card they agree with the plain version up to rare
-    near-tie flips, as K1's do."""
+    near-tie flips, as K1's do. The launch is `chunked_geometry`'s."""
     params = _check_viterbinet("fused_viterbinet_detect_chunked", model, y)
     W, T = y.shape
     _check_chunks(T, n_chunks, overlap)
@@ -386,11 +430,12 @@ def fused_viterbinet_detect_chunked(model: ViterbiNet, y: torch.Tensor, n_chunks
     if y.numel() == 0:
         return out
     lib = _library("viterbinet_detect_chunked")
+    g = chunked_geometry(W, n_chunks, T, overlap, _sm_count(y.device.index))
     with torch.cuda.device(y.device):
         rc = lib.viterbinet_detect_chunked(
             y.data_ptr(), *(p.data_ptr() for p in params), out.data_ptr(), W, T,
-            params[4].shape[0], n_chunks, overlap,
-            torch.cuda.current_stream(y.device).cuda_stream)
+            params[4].shape[0], n_chunks, overlap, g.chains, g.warm_steps, g.slot_steps, g.width,
+            g.blocks, torch.cuda.current_stream(y.device).cuda_stream)
     _check_launch("fused_viterbinet_detect_chunked", rc)
     fused_viterbinet_detect_chunked.launches += 1
     return out

@@ -1,31 +1,43 @@
 // A prior producer and a chain consumer in one block, shared by K1
-// (viterbinet_detect.cu) and K2 (va_detect.cu).
+// (viterbinet_detect.cu), K2 (va_detect.cu) and K4
+// (viterbinet_detect_chunked.cu).
 //
-// Both kernels compute a branch metric per (word, step) symbol that does not
-// depend on the ACS chain, then run one T-step dependent chain per word. On
-// an H100 the chain's latency is the floor at small W (K5, which runs the
-// same chain over priors staged in shared memory, takes ~0.08 us per step),
-// so the metric is moved off the chain: producer warps compute the priors of
-// the next slot of symbols into a ring of kStages slots in shared memory
-// while the block's chain warp runs the ACS over the slot that has arrived.
+// Each kernel computes a branch metric per (chain, step) symbol that does
+// not depend on the ACS chain, then runs one dependent chain per word (K1,
+// K2) or per overlap-save time chunk of a word (K4). On an H100 the chain's
+// latency is the floor at small W (K5, which runs the same chain over priors
+// staged in shared memory, takes ~0.08 us per step), so the metric is moved
+// off the chain: producer warps compute the priors of the next slot of
+// symbols into a ring of kStages slots in shared memory while the block's
+// chain warp runs the ACS over the slot that has arrived.
 //
-// A slot holds `slot_steps` steps of the block's `words` words (at most
-// kSlotRows symbols), row c * words + w for step c of word w, each row
-// kStride<S>() floats (S priors, padded for S >= 8 so that the chain lanes'
-// 16-byte loads of neighbouring rows fall in different banks). Hand-off:
+// A slot holds `slot_steps` steps of the block's `lanes` chains (at most
+// kSlotRows symbols; K4's slots 192), row c * lanes + l for step c of chain
+// l, each row kStride<S>() floats (S priors, padded for S >= 8 so that the
+// chain lanes' 16-byte loads of neighbouring rows fall in different
+// banks). Hand-off:
 // full[s] completes when every producer thread has arrived after writing
 // slot s, empty[s] when every chain lane has arrived after reading it; the
 // producer waits on empty[s] before refilling it. mbarriers, not
 // __syncthreads, so the chain waits only for the slot it needs.
 //
-// Each lane of a full block at large W touches its own word's row of the
-// output, 32 rows per warp instruction; such an instruction costs the SM's
-// memory pipeline about as much as 32 coalesced ones, so where the rows are
-// 16-byte aligned (T % 4 == 0) the bits leave in 16-byte stores, one per 4
-// steps (on an H100 this halved K2's time at 65536 words, PERF.md).
+// The chain loop (run_chains) takes per launch the ring slot of a chain
+// set's first slot (first: K4's blocks run several sets one after another
+// through the same ring; 0 for K1 and K2), the steps of a chain (n_steps),
+// the store width (1, 2 or 4 floats) and, for K4 (kChunked), the warm-up:
+// slots of steps whose bits are dropped, holding only the chains that warm
+// up, before the stored steps. K1 and K2 are the case of no warm-up and one
+// set. Each lane of a full block at large W touches its own chain's row of
+// the output, 32 rows per warp instruction; such an instruction costs the
+// SM's memory pipeline about as much as 32 coalesced ones, so the bits
+// leave in the widest store that keeps every lane aligned (store_width: 16
+// bytes per 4 steps where T % 4 == 0, which halved K2's time at 65536 words
+// on an H100, PERF.md; K4's rows at T = 136 and 4 chunks start 8-byte
+// aligned and take 8-byte stores).
 //
-// The launch geometry (words per block, steps per slot) is computed by the
-// wrapper (kernels/acs.py::chain_geometry) from W and the SM count.
+// The launch geometry (chains per block or set, steps per slot) is computed
+// by the wrappers (kernels/acs.py::chain_geometry, ::chunked_geometry) from
+// W and the SM count.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -34,8 +46,8 @@
 #include "acs.cuh"
 
 constexpr int kStages = 3;       // slots in the ring
-constexpr int kChainWords = 32;  // words of a block at most: one chain warp
-constexpr int kSlotRows = 128;   // symbols of a slot at most: slot_steps * words
+constexpr int kChainWords = 32;  // chains of a block at most: one chain warp
+constexpr int kSlotRows = 128;   // symbols of a slot at most: slot_steps * chains
 
 template <int S>
 __host__ __device__ constexpr int kStride() {
@@ -108,49 +120,111 @@ __device__ __forceinline__ void load_row(const float* __restrict__ src, float (&
   }
 }
 
-// The chain warp: lane w < words runs word w's ACS with its S metrics in
-// registers over every slot of the ring in order, and writes its bit of
-// each step to bits[t] (bits = out + (w0 + w) * T, 16-byte aligned where T
-// is a multiple of 4, as the wrapper's output is). Every lane takes part in
-// the hand-off, live or not.
-template <int S>
-__device__ __forceinline__ void run_chains(const float* ring, RingBarriers& b, int words,
-                                           int slot_steps, int T, float* __restrict__ bits) {
+// The widest store, in floats (4, 2 or 1), that divides both a and b: with
+// a lane's bits starting 16-byte aligned plus a multiple of it and a slot's
+// steps a multiple of it, every store of `width` steps is aligned.
+__host__ __device__ constexpr int store_width(int a, int b) {
+  return (a | b) % 4 == 0 ? 4 : (a | b) % 2 == 0 ? 2 : 1;
+}
+
+template <int V>
+__device__ __forceinline__ void store_bits(float* __restrict__ dst, const float (&v)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+  } else {
+    *dst = v[0];
+  }
+}
+
+// Steps t0 + c .. t0 + c + V - 1 of one chain from slot rows c .. c + V - 1
+// (`stride` floats apart); their bits go to bits[t0 + c] .. (none without
+// kStore: warm-up steps)
+template <int S, int V, bool kStore = true>
+__device__ __forceinline__ void chain_steps(float (&m)[S], const float* row, int stride, int t0,
+                                            int c, float* __restrict__ bits) {
+  float v[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    float p[S];
+    load_row<S>(row + (c + i) * stride, p);
+    v[i] = acs_step<S>(m, p);
+  }
+  if constexpr (kStore) store_bits<V>(bits + t0 + c, v);
+}
+
+// the `steps` steps of one chain in a slot, V at a time
+template <int S, int V, bool kStore = true>
+__device__ __forceinline__ void chain_slot(float (&m)[S], const float* row, int stride, int t0,
+                                           int steps, float* __restrict__ bits) {
+  if constexpr (V == 1) {
+#pragma unroll 4
+    for (int c = 0; c < steps; ++c) chain_steps<S, 1, kStore>(m, row, stride, t0, c, bits);
+  } else {
+    for (int c = 0; c < steps; c += V) chain_steps<S, V, kStore>(m, row, stride, t0, c, bits);
+  }
+}
+
+// K4's warm-up (viterbinet_detect_chunked.cu): before its stored steps a
+// chain runs `steps` steps whose bits are dropped, in `slots` ring slots
+// of up to slot_steps steps of `lanes` chains each (the chains that warm
+// up: row c * lanes + l for step c of lane l); `run`: this lane warms up.
+struct WarmUp {
+  int slots = 0, slot_steps = 1, steps = 0, lanes = 0;
+  bool run = false;
+};
+
+// The chain warp: lane l < lanes runs its chain with its S metrics in
+// registers from 0, over ring slots first, first + 1, ... in order (first:
+// the slots the chain warp took before, for a block that runs several sets
+// of chains). kChunked (K4): first the warm-up's slots, whose bits are
+// dropped, then n_steps steps whose bit of step t goes to bits[t] (bits:
+// this lane's output, 16-byte aligned plus a multiple of `width` floats;
+// width = store_width of slot_steps and the row offsets), 4, 2 or 1 at a
+// time. Without it (K1, K2) there is no warm-up and the stores are 4 floats
+// wide or 1. A slot holds kRows symbols at most (K4's are larger than K1's
+// and K2's). Every lane takes part in the hand-off, live or not.
+template <int S, bool kChunked = false, int kRows = kSlotRows>
+__device__ __forceinline__ void run_chains(const float* ring, RingBarriers& b, int first,
+                                           int lanes, int slot_steps, int n_steps, int width,
+                                           float* __restrict__ bits, const WarmUp& warm = {}) {
   constexpr int kRow = kStride<S>();
   const int lane = threadIdx.x % 32;
-  const bool live = lane < words;
+  const bool live = lane < lanes;
   float m[S];
 #pragma unroll
   for (int s = 0; s < S; ++s) m[s] = 0.0f;
-  const int n_slots = (T + slot_steps - 1) / slot_steps;
-  // every word's row and every slot start at a multiple of 4 steps
-  const bool vec4 = T % 4 == 0 && slot_steps % 4 == 0;
+  if constexpr (kChunked) {
+    for (int slot = 0; slot < warm.slots; ++slot) {
+      const int k = first + slot;
+      const int st = k % kStages;
+      mbar_wait(&b.full[st], (k / kStages) & 1);
+      if (warm.run) {
+        const int t0 = slot * warm.slot_steps;
+        chain_slot<S, 1, false>(m, ring + st * kRows * kRow + lane * kRow, warm.lanes * kRow, t0,
+                                min(warm.slot_steps, warm.steps - t0), bits);
+      }
+      mbar_arrive(&b.empty[st]);
+    }
+    first += warm.slots;
+  }
+  const int n_slots = (n_steps + slot_steps - 1) / slot_steps;
   for (int slot = 0; slot < n_slots; ++slot) {
-    const int st = slot % kStages;
-    mbar_wait(&b.full[st], (slot / kStages) & 1);
+    const int k = first + slot;
+    const int st = k % kStages;
+    mbar_wait(&b.full[st], (k / kStages) & 1);
     if (live) {
       const int t0 = slot * slot_steps;
-      const int steps = min(slot_steps, T - t0);
-      const float* row = ring + st * kSlotRows * kRow + lane * kRow;
-      const int stride = words * kRow;
-      if (vec4) {  // a store of 16 bytes per 4 steps
-        for (int c = 0; c < steps; c += 4) {
-          float four[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            float p[S];
-            load_row<S>(row + (c + i) * stride, p);
-            four[i] = acs_step<S>(m, p);
-          }
-          *reinterpret_cast<float4*>(bits + t0 + c) = make_float4(four[0], four[1], four[2], four[3]);
-        }
+      const int steps = min(slot_steps, n_steps - t0);
+      const float* row = ring + st * kRows * kRow + lane * kRow;
+      const int stride = lanes * kRow;
+      if (width == 4) {
+        chain_slot<S, 4>(m, row, stride, t0, steps, bits);
+      } else if (kChunked && width == 2) {
+        chain_slot<S, 2>(m, row, stride, t0, steps, bits);
       } else {
-#pragma unroll 4
-        for (int c = 0; c < steps; ++c) {
-          float p[S];
-          load_row<S>(row + c * stride, p);
-          bits[t0 + c] = acs_step<S>(m, p);
-        }
+        chain_slot<S, 1>(m, row, stride, t0, steps, bits);
       }
     }
     mbar_arrive(&b.empty[st]);

@@ -88,7 +88,8 @@ va_detect_kernel(const float* __restrict__ y, const float* __restrict__ mu,
   __syncthreads();
 
   if (tid < 32) {
-    run_chains<S>(sm.ring, sm.bar, words, slot_steps, T, out + (w0 + tid) * T);
+    run_chains<S>(sm.ring, sm.bar, 0, words, slot_steps, T, store_width(T, slot_steps),
+                  out + (w0 + tid) * T);
     return;
   }
   // the producer warp: lane l takes rows l, l + 32, ... of each slot, and

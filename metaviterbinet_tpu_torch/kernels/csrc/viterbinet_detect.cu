@@ -65,12 +65,13 @@ viterbinet_detect_kernel(const float* __restrict__ y, const float* __restrict__ 
   const int tid = threadIdx.x;
   const long w0 = static_cast<long>(blockIdx.x) * words_per_block;
   const int words = static_cast<int>(min(static_cast<long>(words_per_block), W - w0));
-  load_mlp<S>(sm.mlp, w1, b1, w2, b2, w3, b3, tid, kThreads);
+  load_mlp<S, kThreads>(sm.mlp, w1, b1, w2, b2, w3, b3, tid);
   if (tid == 0) ring_init(sm.bar, kProducers, 32);
   __syncthreads();
 
   if (tid >= kProducers) {
-    run_chains<S>(sm.ring, sm.bar, words, slot_steps, T, out + (w0 + tid - kProducers) * T);
+    run_chains<S>(sm.ring, sm.bar, 0, words, slot_steps, T, store_width(T, slot_steps),
+                  out + (w0 + tid - kProducers) * T);
     return;
   }
   // the producer warpgroups: group g computes tile g of each slot, rows
@@ -153,7 +154,7 @@ tile_priors_kernel(const float* __restrict__ y, const float* __restrict__ w1,
                    const float* __restrict__ b3, float* __restrict__ priors) {
   __shared__ MlpWeights<S> mlp;
   const int tid = threadIdx.x, lane = tid % 32;
-  load_mlp<S>(mlp, w1, b1, w2, b2, w3, b3, tid, 128);
+  load_mlp<S, 128>(mlp, w1, b1, w2, b2, w3, b3, tid);
   __syncthreads();
   const int ra = 16 * (tid / 32) + lane / 4, rb = ra + 8;
   float pa[kPriorCols<S>()], pb[kPriorCols<S>()];

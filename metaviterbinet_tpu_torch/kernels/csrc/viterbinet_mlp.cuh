@@ -62,9 +62,12 @@ __host__ __device__ constexpr int kPriorCols() {  // prior columns a thread hold
 // approximate reciprocal gave no mismatch and this form 1.1e-7. The trade:
 // K1 at 65536 x 136 took 0.567 ms with this form, 0.81 with __expf and 1.51
 // with the IEEE form, all well inside the 1e-3 bit contract.
-__device__ __forceinline__ float sigmoid_f32(float a) {
+// It takes half its argument, a / 2 = (w1 / 2) y + b1 / 2, which load_mlp's
+// halved w1 and b1 give exactly (a multiply by 0.5 rounds nothing outside
+// the subnormal range).
+__device__ __forceinline__ float sigmoid_of_half(float half_a) {
   float t;
-  asm("tanh.approx.f32 %0, %1;" : "=f"(t) : "f"(__fmul_rn(0.5f, a)));
+  asm("tanh.approx.f32 %0, %1;" : "=f"(t) : "f"(half_a));
   return __fmaf_rn(0.5f, t, 0.5f);
 }
 
@@ -86,36 +89,56 @@ template <int S>
 struct alignas(128) MlpWeights {
   uint16_t w2[kN1 * kK1];  // bf16 bits
   uint16_t w3[kN2<S>() * kK2];
-  float4 w1b1[kK1 / 2];  // {w1[c], b1[c], w1[c + 1], b1[c + 1]} for c = 2 i
+  float4 w1b1[kK1 / 2];  // {w1[c], b1[c], w1[c + 1], b1[c + 1]} / 2 for c = 2 i
   float b2[kN1];
   float b3[kN2<S>()];
 };
 
 // w1 [100] (the [100, 1] weight), b1 [100], w2 [50, 100], b2 [50],
-// w3 [S, 50], b3 [S]; every thread of the block calls it, and the caller
-// synchronises the block before the first tile.
-template <int S>
+// w3 [S, 50], b3 [S]; all kN threads of the block call it, and the caller
+// synchronises the block before the first tile. Each thread issues all of
+// its loads before it converts and stores any, so that the block waits for
+// one round trip to device memory instead of one per element it owns.
+template <int S, int kN>
 __device__ __forceinline__ void load_mlp(MlpWeights<S>& s, const float* __restrict__ w1,
                                          const float* __restrict__ b1,
                                          const float* __restrict__ w2,
                                          const float* __restrict__ b2,
                                          const float* __restrict__ w3,
-                                         const float* __restrict__ b3, int tid, int n_threads) {
-  for (int i = tid; i < kN1 * kK1; i += n_threads) {
-    const int n = i / kK1, k = i % kK1;
-    s.w2[core_index<kK1>(n, k)] = bf16_bits(n < kH2 && k < kH1 ? w2[n * kH1 + k] : 0.0f);
+                                         const float* __restrict__ b3, int tid) {
+  constexpr int kW2 = kN1 * kK1, kW3 = kN2<S>() * kK2;
+  constexpr int kA = (kW2 + kN - 1) / kN, kB = (kW3 + kN - 1) / kN;
+  static_assert(kN >= kK1 / 2 && kN >= kN1, "one thread per w1/b1 pair and per b2 entry");
+  float a[kA], b[kB];
+#pragma unroll
+  for (int m = 0; m < kA; ++m) {
+    const int i = tid + m * kN, n = i / kK1, k = i % kK1;
+    a[m] = i < kW2 && n < kH2 && k < kH1 ? w2[n * kH1 + k] : 0.0f;
   }
-  for (int i = tid; i < kN2<S>() * kK2; i += n_threads) {
-    const int n = i / kK2, k = i % kK2;
-    s.w3[core_index<kK2>(n, k)] = bf16_bits(n < S && k < kH2 ? w3[n * kH2 + k] : 0.0f);
+#pragma unroll
+  for (int m = 0; m < kB; ++m) {
+    const int i = tid + m * kN, n = i / kK2, k = i % kK2;
+    b[m] = i < kW3 && n < S && k < kH2 ? w3[n * kH2 + k] : 0.0f;
   }
-  for (int i = tid; i < kK1 / 2; i += n_threads) {
-    const int c = 2 * i;
-    s.w1b1[i] = c < kH1 ? make_float4(w1[c], b1[c], w1[c + 1], b1[c + 1])
-                        : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const int c = 2 * tid;
+  const float4 wb = c < kH1 ? make_float4(w1[c], b1[c], w1[c + 1], b1[c + 1])
+                            : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const float bias2 = tid < kH2 ? b2[tid] : 0.0f;
+  const float bias3 = tid < S ? b3[tid] : 0.0f;
+#pragma unroll
+  for (int m = 0; m < kA; ++m) {
+    const int i = tid + m * kN;
+    if (i < kW2) s.w2[core_index<kK1>(i / kK1, i % kK1)] = bf16_bits(a[m]);
   }
-  for (int i = tid; i < kN1; i += n_threads) s.b2[i] = i < kH2 ? b2[i] : 0.0f;
-  for (int i = tid; i < kN2<S>(); i += n_threads) s.b3[i] = i < S ? b3[i] : 0.0f;
+#pragma unroll
+  for (int m = 0; m < kB; ++m) {
+    const int i = tid + m * kN;
+    if (i < kW3) s.w3[core_index<kK2>(i / kK2, i % kK2)] = bf16_bits(b[m]);
+  }
+  // w1 and b1 halved (exact): the sigmoid takes tanh of half its argument
+  if (tid < kK1 / 2) s.w1b1[tid] = make_float4(0.5f * wb.x, 0.5f * wb.y, 0.5f * wb.z, 0.5f * wb.w);
+  if (tid < kN1) s.b2[tid] = bias2;
+  if (tid < kN2<S>()) s.b3[tid] = bias3;
   // the tensor cores read W2 and W3 through the async proxy
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -218,10 +241,10 @@ __device__ __forceinline__ void mlp_tile(const MlpWeights<S>& w, float y0, float
         continue;
       }
       const float4 wb = w.w1b1[c / 2];
-      a1[kk][2 * half] = pack_bf16(sigmoid_f32(__fadd_rn(__fmul_rn(wb.x, y0), wb.y)),
-                                   sigmoid_f32(__fadd_rn(__fmul_rn(wb.z, y0), wb.w)));
-      a1[kk][2 * half + 1] = pack_bf16(sigmoid_f32(__fadd_rn(__fmul_rn(wb.x, y1), wb.y)),
-                                       sigmoid_f32(__fadd_rn(__fmul_rn(wb.z, y1), wb.w)));
+      a1[kk][2 * half] = pack_bf16(sigmoid_of_half(__fadd_rn(__fmul_rn(wb.x, y0), wb.y)),
+                                   sigmoid_of_half(__fadd_rn(__fmul_rn(wb.z, y0), wb.w)));
+      a1[kk][2 * half + 1] = pack_bf16(sigmoid_of_half(__fadd_rn(__fmul_rn(wb.x, y1), wb.y)),
+                                       sigmoid_of_half(__fadd_rn(__fmul_rn(wb.z, y1), wb.w)));
     }
   }
   float d1[kN1 / 2];

@@ -7,9 +7,15 @@ steps against its plain version and, after 40 + 40, against a float64 run
 of the plain version's arithmetic (its distance within a multiple of the f32
 plain version's, chip_smoke.py's K6_WITNESS_*), on a few (T, S) words and
 the witness words, where runs with one Adam constant off (K6_FAULTS) must
-fail it; two K6 launches with each other; then time K1, K2 and K4
-at the protocol's 300 x 136, K1 and K2 at 65536 x 136, K2 and K5 at the
-engine's 1 x 136, and K6 on the device (a CUDA graph of back-to-back calls).
+fail it; two K6 launches with each other; then count the SASS
+instructions of the S = 16 detect kernels (K1, K2, K4), and time one
+tensor-core tile of K1 (a block's fixed cost: its weights into shared
+memory and one tile), K1, K2 and K4 at the protocol's 300 x 136, K1, K2
+and K4 at 65536 x 136, K2 and K5 at the engine's 1 x 136, and K6 on the
+device (a CUDA graph of back-to-back calls); with a package whose K4 takes
+its launch geometry (kernels/acs.py::chunked_geometry), also K4 at other
+geometries: its bits stored one float per lane per step, one set per
+block, other chains per set and steps per slot.
 
     env PYTHONPATH=. python3 scripts/torch_kernel_probe.py
     env PYTHONPATH=<other checkout> python3 scripts/torch_kernel_probe.py --time
@@ -20,7 +26,11 @@ exits non-zero if a check fails. With --time it skips the checks and only
 times, so that it can time another checkout's package (an earlier commit,
 unpacked with `git archive`) in the same call: run the two in turns.
 """
+import ctypes
 import importlib.util
+import re
+import shutil
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -102,6 +112,38 @@ def check_k6(S, T, g) -> bool:
     return ok and same
 
 
+# K4 against its plain version: (W, T, C, overlap), the card tests' shapes
+K4_SHAPES = ((300, 136, 2, 32), (300, 136, 4, 32), (1, 136, 4, 32), (4096, 136, 4, 32),
+             (33, 135, 3, 32), (7, 70, 2, 32), (13, 64, 2, 32), (1001, 136, 4, 32),
+             (5, 80, 40, 2))
+
+
+def sass_counts(name: str) -> dict:
+    """Instructions of each S = 16 kernel in the SASS of library `name`."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(acs.library_path(name))], capture_output=True,
+                          text=True, check=True).stdout
+    counts = {}
+    for block in re.split(r"\n\s*Function : ", text)[1:]:
+        head, body = block.split("\n", 1)
+        if "ILi16E" in head:
+            counts[head.strip()] = len(re.findall(r"^\s+/\*[0-9a-f]{4,}\*/\s+\S", body, re.M))
+    return counts
+
+
+def k4_variant(model, y, C, chains, warm, steps, width, blocks, overlap=32):
+    """One K4 launch at the given geometry (kernels/acs.py::ChunkedGeometry),
+    through its C function (counts no launch); returns the bits."""
+    params = acs._mlp_params(model)
+    out = torch.empty_like(y)
+    W, T = y.shape
+    rc = acs._library("viterbinet_detect_chunked").viterbinet_detect_chunked(
+        y.data_ptr(), *(p.data_ptr() for p in params), out.data_ptr(), W, T, 16, C, overlap,
+        chains, warm, steps, width, blocks, torch.cuda.current_stream().cuda_stream)
+    acs._check_launch("k4_variant", rc)
+    return out
+
+
 def check_detect(g) -> bool:
     ok = True
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -130,12 +172,15 @@ def check_detect(g) -> bool:
                       f"{same}", flush=True)
                 ok &= limit_ok and same
     model = viterbinet.init_params(16, g, device="cuda")
-    for C in (2, 4):
-        y = smoke.kernel_inputs(300, 136, g)[0]
-        rate = float((acs.fused_viterbinet_detect_chunked(model, y, C)
-                      != acs.fused_viterbinet_detect_chunked_plain(model, y, C)).float().mean())
-        print(f"K4 C={C} 300x136: mismatch {rate:.3e}", flush=True)
-        ok &= rate < 1e-3
+    for W, T, C, overlap in K4_SHAPES:
+        y = smoke.kernel_inputs(W, T, g)[0]
+        got = acs.fused_viterbinet_detect_chunked(model, y, C, overlap)
+        same = torch.equal(got, acs.fused_viterbinet_detect_chunked(model, y, C, overlap))
+        rate = float((got != acs.fused_viterbinet_detect_chunked_plain(model, y, C, overlap))
+                     .float().mean())
+        print(f"K4 C={C} overlap={overlap} {W}x{T}: mismatch {rate:.3e}, two launches "
+              f"bit-identical {same}", flush=True)
+        ok &= rate < 1e-3 and same
     return ok
 
 
@@ -170,16 +215,40 @@ def main() -> int:
                 ok &= check_witness(f"witness word T={T} seed={seed}", *inputs, fault=fault)
         ok &= check_detect(torch.Generator(device="cuda").manual_seed(1))
 
+    for name in ("viterbinet_detect", "va_detect", "viterbinet_detect_chunked"):
+        for kernel, n in sass_counts(name).items():
+            print(f"SASS {name}: {n} instructions in {kernel}", flush=True)
     model = viterbinet.init_params(16, g, device="cuda")
+    y64 = 2 * torch.randn(64, generator=g, device="cuda")
+    ms = smoke.graph_ms(lambda: acs.viterbinet_tile_priors(model, y64))
+    print(f"K1 tile (one block of 128 threads: the weights into shared memory, one tile): "
+          f"{ms:.5f} ms on the device [{card}]", flush=True)
     for W in (300, 65536):
         y, mu = smoke.kernel_inputs(W, 136, g)
         for name, fn in (("K2", lambda: acs.fused_va_detect(y, mu)),
                          ("K1", lambda: acs.fused_viterbinet_detect(model, y))):
             print(f"{name} {W}x136: {smoke.graph_ms(fn):.5f} ms on the device [{card}]", flush=True)
-    y = smoke.kernel_inputs(300, 136, g)[0]
-    for C in (2, 4):
-        ms = smoke.graph_ms(lambda: acs.fused_viterbinet_detect_chunked(model, y, C))
-        print(f"K4 C={C} 300x136: {ms:.5f} ms on the device [{card}]", flush=True)
+        for C in ((2, 4) if W == 300 else (4,)):
+            ms = smoke.graph_ms(lambda: acs.fused_viterbinet_detect_chunked(model, y, C))
+            print(f"K4 C={C} {W}x136: {ms:.5f} ms on the device [{card}]", flush=True)
+        if hasattr(acs, "chunked_geometry"):
+            # K4 at other geometries: (C, chains per set, warm-up steps per slot, stored
+            # steps per slot, store width, blocks); blocks = sets is one set per block
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            variants = ((4, 32, 8, 6, 2, 8192), (4, 32, 8, 6, 1, sms), (4, 32, 6, 6, 2, sms),
+                        (4, 32, 8, 4, 2, sms)) if W == 65536 else \
+                ((4, 12, 16, 16, 2, 100), (4, 12, 21, 16, 1, 100), (4, 12, 21, 10, 2, 100),
+                 (4, 8, 32, 24, 2, 150), (2, 6, 32, 20, 4, 100))
+            for C, chains, warm, steps, width, blocks in variants:
+                want = acs.fused_viterbinet_detect_chunked(model, y, C)
+                same = torch.equal(k4_variant(model, y, C, chains, warm, steps, width, blocks), want)
+                ms = smoke.graph_ms(
+                    lambda: k4_variant(model, y, C, chains, warm, steps, width, blocks))
+                print(f"K4 variant C={C} {W}x136 chains {chains} warm-up steps {warm} stored "
+                      f"steps {steps} store width {width} blocks {blocks}: {ms:.5f} ms on the "
+                      f"device, bits equal to the wrapper's {same}; wrapper's geometry "
+                      f"{tuple(acs.chunked_geometry(W, C, 136, 32, sms))} [{card}]", flush=True)
+                ok &= same
     y, mu = smoke.kernel_inputs(1, 136, g)
     print(f"K2 1x136: {smoke.graph_ms(lambda: acs.fused_va_detect(y, mu)):.5f} ms on the device "
           f"[{card}]", flush=True)

@@ -230,14 +230,46 @@ def _channel_words(W, gen):
                           noise_generator=gen)[1].contiguous()
 
 
-@pytest.mark.parametrize("W,T,C", [(300, 136, 2), (300, 136, 4), (1000, 136, 2), (13, 64, 2)])
-def test_chunked_kernel_matches_plain(gen, W, T, C):
+@pytest.mark.parametrize("W,T,C,overlap", [
+    (300, 136, 2, 32), (300, 136, 4, 32), (1000, 136, 2, 32), (13, 64, 2, 32),  # overlap = Tc
+    (1, 136, 4, 32), (4096, 136, 4, 32), (33, 135, 3, 32), (7, 70, 2, 32),  # Tc = 35
+    (1001, 136, 4, 32),  # W C = 4004 chains, no multiple of the 32 per block
+    (5, 80, 40, 2)])  # C > 32: blocks of chains from several words
+def test_chunked_kernel_matches_plain(gen, W, T, C, overlap):
+    """K4 at the protocol's shapes and the ragged ones of its geometry
+    (kernels/acs.py::chunked_geometry): < 1e-3 bit mismatch, as K1."""
     model = viterbinet.init_params(16, gen, device="cuda")
     y = torch.randn((W, T), generator=gen, device="cuda")
     before = acs.fused_viterbinet_detect_chunked.launches
-    got = acs.fused_viterbinet_detect_chunked(model, y, C, 32)
+    got = acs.fused_viterbinet_detect_chunked(model, y, C, overlap)
     assert acs.fused_viterbinet_detect_chunked.launches == before + 1
-    want = acs.fused_viterbinet_detect_chunked_plain(model, y, C, 32)
+    want = acs.fused_viterbinet_detect_chunked_plain(model, y, C, overlap)
+    assert float((got != want).float().mean()) < 1e-3
+
+
+@pytest.mark.parametrize("W,C", [(300, 2), (300, 4), (4224, 4)])
+def test_chunked_kernel_launches_are_bit_identical(gen, W, C):
+    """Two K4 launches from the same inputs give the same bits (the ring's
+    hand-off between producer warpgroups and the chain warp)."""
+    model = viterbinet.init_params(16, gen, device="cuda")
+    y = chip_smoke.kernel_inputs(W, 136, gen)[0]
+    assert torch.equal(acs.fused_viterbinet_detect_chunked(model, y, C, 32),
+                       acs.fused_viterbinet_detect_chunked(model, y, C, 32))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_chunked_kernel_reads_unaligned_views(gen, offset):
+    """K4 on y as a contiguous view 1-3 floats off a 16-byte boundary gives
+    the bits of an aligned copy and its plain version's within 1e-3."""
+    W, T = 4224, 136
+    y = chip_smoke.kernel_inputs(W, T, gen)[0]
+    view = torch.empty(W * T + offset, device="cuda")[offset:].view(W, T)
+    view.copy_(y)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    model = viterbinet.init_params(16, gen, device="cuda")
+    got = acs.fused_viterbinet_detect_chunked(model, view, 4, 32)
+    assert torch.equal(got, acs.fused_viterbinet_detect_chunked(model, y, 4, 32))
+    want = acs.fused_viterbinet_detect_chunked_plain(model, y, 4, 32)
     assert float((got != want).float().mean()) < 1e-3
 
 

@@ -176,6 +176,38 @@ def test_chain_geometry_spreads_words_over_the_sms():
             assert blocks * words >= W > (blocks - 1) * words and blocks <= max(sms, W // 32 + 1)
 
 
+@pytest.mark.parametrize("W", [1, 300, 65536])
+@pytest.mark.parametrize("C,T,overlap", [(2, 136, 32), (3, 135, 32), (4, 136, 32), (40, 80, 2)])
+def test_chunked_geometry_covers_every_chain(W, C, T, overlap):
+    """K4's launch (csrc/viterbinet_detect_chunked.cu): at most one chain
+    warp's 32 chains per set, whole words of them where C <= 32; slots of at
+    most 192 symbols, warm-up slots of the warming chains and stored slots
+    of all chains, whose steps are a multiple of the store width, which
+    divides the chunk length; every chain in one set, and at most one block
+    per SM, each with at least one set."""
+    sms = 132
+    g = tacs.chunked_geometry(W, C, T, overlap, sms)
+    assert 1 <= g.chains <= tacs.CHAIN_WORDS and 1 <= g.slot_steps and 1 <= g.warm_steps <= overlap
+    assert g.chains * g.slot_steps <= tacs.K4_SLOT_ROWS
+    assert g.warm_steps * tacs.warming_chains(g.chains, C) <= tacs.K4_SLOT_ROWS
+    if C <= tacs.CHAIN_WORDS:
+        assert g.chains % C == 0
+    assert g.width in (1, 2, 4) and (T // C) % g.width == 0 and g.slot_steps % g.width == 0
+    assert g.sets * g.chains >= W * C > (g.sets - 1) * g.chains
+    assert 1 <= g.blocks <= min(sms, g.sets)
+
+
+def test_chunked_geometry_at_the_protocol_width():
+    """300 words at C = 4 and 2 spread over 100 of the 132 SMs, as K1's
+    300 words do; 65536 words fill every chain lane of one block per SM."""
+    assert tacs.chunked_geometry(300, 4, 136, 32, 132) == (12, 21, 16, 100, 100, 2)
+    assert tacs.chunked_geometry(300, 2, 136, 32, 132) == (6, 32, 32, 100, 100, 4)
+    assert tacs.chunked_geometry(65536, 4, 136, 32, 132) == (32, 8, 6, 8192, 132, 2)
+    assert tacs.chunked_geometry(1, 4, 136, 32, 132) == (4, 32, 48, 1, 1, 2)
+    assert tacs.chunked_geometry(7, 2, 70, 32, 132) == (2, 32, 96, 7, 7, 1)
+    assert tacs.warming_chains(12, 4) == 9 and tacs.warming_chains(5, 40) == 5
+
+
 def test_library_path_tracks_sources():
     a, b = tacs.library_path("va_detect"), tacs.library_path("viterbinet_detect")
     assert a != b and a.parent == tacs.BUILD_DIR and a.suffix == ".so"
