@@ -177,8 +177,8 @@ def chunked_geometry(W: int, C: int, T: int, overlap: int, n_sms: int) -> Chunke
     most, which runs its sets one after another. A warm-up slot holds as
     many steps of the set's warming chains as fit in K4_SLOT_ROWS symbols, a
     stored slot as many steps of all its chains, a multiple of the store
-    width: the widest store (4, 2 or 1 floats) that divides the chunk length
-    T / C (csrc/prior_ring.cuh::store_width)."""
+    width: 4 floats where they divide the chunk length T / C, else 1
+    (csrc/prior_ring.cuh::store_width)."""
     n = W * C
     per = max(1, -(-n // n_sms))
     if C <= CHAIN_WORDS:
@@ -186,7 +186,7 @@ def chunked_geometry(W: int, C: int, T: int, overlap: int, n_sms: int) -> Chunke
     else:
         chains = min(CHAIN_WORDS, per)
     Tc = T // C
-    width = 4 if Tc % 4 == 0 else 2 if Tc % 2 == 0 else 1
+    width = 4 if Tc % 4 == 0 else 1
     warming = warming_chains(chains, C)
     warm = min(overlap, K4_SLOT_ROWS // warming) if warming else overlap
     steps = K4_SLOT_ROWS // chains

@@ -24,16 +24,16 @@
 // The chain loop (run_chains) takes per launch the ring slot of a chain
 // set's first slot (first: K4's blocks run several sets one after another
 // through the same ring; 0 for K1 and K2), the steps of a chain (n_steps),
-// the store width (1, 2 or 4 floats) and, for K4 (kChunked), the warm-up:
+// the store width (1 or 4 floats) and, for K4 (kChunked), the warm-up:
 // slots of steps whose bits are dropped, holding only the chains that warm
 // up, before the stored steps. K1 and K2 are the case of no warm-up and one
 // set. Each lane of a full block at large W touches its own chain's row of
 // the output, 32 rows per warp instruction; such an instruction costs the
 // SM's memory pipeline about as much as 32 coalesced ones, so the bits
-// leave in the widest store that keeps every lane aligned (store_width: 16
-// bytes per 4 steps where T % 4 == 0, which halved K2's time at 65536 words
-// on an H100, PERF.md; K4's rows at T = 136 and 4 chunks start 8-byte
-// aligned and take 8-byte stores).
+// leave in 16-byte stores of 4 steps where every lane's row is 16-byte
+// aligned (store_width; this halved K2's time at 65536 words on an H100,
+// PERF.md). K4's rows at T = 136 and 4 chunks start 8-byte aligned and take
+// 4-byte stores: 8-byte ones were no faster (PERF.md).
 //
 // The launch geometry (chains per block or set, steps per slot) is computed
 // by the wrappers (kernels/acs.py::chain_geometry, ::chunked_geometry) from
@@ -120,19 +120,18 @@ __device__ __forceinline__ void load_row(const float* __restrict__ src, float (&
   }
 }
 
-// The widest store, in floats (4, 2 or 1), that divides both a and b: with
-// a lane's bits starting 16-byte aligned plus a multiple of it and a slot's
-// steps a multiple of it, every store of `width` steps is aligned.
+// The bits' store width in floats: 4 where a and b are multiples of 4, so
+// that with a lane's bits starting 16-byte aligned plus a multiple of 4
+// floats and a slot's steps a multiple of 4, every 16-byte store is
+// aligned; else 1.
 __host__ __device__ constexpr int store_width(int a, int b) {
-  return (a | b) % 4 == 0 ? 4 : (a | b) % 2 == 0 ? 2 : 1;
+  return (a | b) % 4 == 0 ? 4 : 1;
 }
 
 template <int V>
 __device__ __forceinline__ void store_bits(float* __restrict__ dst, const float (&v)[V]) {
   if constexpr (V == 4) {
     *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-  } else if constexpr (V == 2) {
-    *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
   } else {
     *dst = v[0];
   }
@@ -179,12 +178,11 @@ struct WarmUp {
 // registers from 0, over ring slots first, first + 1, ... in order (first:
 // the slots the chain warp took before, for a block that runs several sets
 // of chains). kChunked (K4): first the warm-up's slots, whose bits are
-// dropped, then n_steps steps whose bit of step t goes to bits[t] (bits:
+// dropped. Then n_steps steps whose bit of step t goes to bits[t] (bits:
 // this lane's output, 16-byte aligned plus a multiple of `width` floats;
-// width = store_width of slot_steps and the row offsets), 4, 2 or 1 at a
-// time. Without it (K1, K2) there is no warm-up and the stores are 4 floats
-// wide or 1. A slot holds kRows symbols at most (K4's are larger than K1's
-// and K2's). Every lane takes part in the hand-off, live or not.
+// width = store_width of slot_steps and the row offsets), 4 or 1 at a
+// time. A slot holds kRows symbols at most (K4's are larger than K1's and
+// K2's). Every lane takes part in the hand-off, live or not.
 template <int S, bool kChunked = false, int kRows = kSlotRows>
 __device__ __forceinline__ void run_chains(const float* ring, RingBarriers& b, int first,
                                            int lanes, int slot_steps, int n_steps, int width,
@@ -221,8 +219,6 @@ __device__ __forceinline__ void run_chains(const float* ring, RingBarriers& b, i
       const int stride = lanes * kRow;
       if (width == 4) {
         chain_slot<S, 4>(m, row, stride, t0, steps, bits);
-      } else if (kChunked && width == 2) {
-        chain_slot<S, 2>(m, row, stride, t0, steps, bits);
       } else {
         chain_slot<S, 1>(m, row, stride, t0, steps, bits);
       }

@@ -41,7 +41,7 @@
 // the chains that warm up (no stream-head rows), then its stored steps; at
 // 65536 words the 132 blocks, one per SM, take 62 or 63 sets each one after
 // another through the same ring, with the weights loaded once. The bits
-// leave in 8- or 16-byte stores where every chain's row allows it
+// leave in 16-byte stores where every chain's row allows it
 // (prior_ring.cuh::store_width). Any W, any C dividing T and 1 <= overlap
 // <= Tc: the ragged edges are masked. Where C > 32 a set is no whole number
 // of words and every chain has a warm-up row, which a stream-head chain
@@ -127,35 +127,39 @@ __device__ __forceinline__ RowSource row_source(const Shape& sh, const SetLanes&
   return {word * sh.T + chunk * sh.Tc - sh.overlap, r / per_step, chunk == 0};
 }
 
-// A producer thread's rows ra, rb in one mode of one chain set, recomputed
-// when either changes (twice a set).
+// A producer thread's cursor over its block's ring slots: the chain set
+// and slot of the slot it loads next, and the sources of the thread's rows
+// ra, rb in that slot's mode of that set, recomputed when either changes
+// (twice a set).
 struct SlotRows {
-  int key = -1;  // 2 * set + (stored steps)
+  int set = 0, slot = -1;
   int per_step = 0;
   RowSource a, b;
 };
 
-// the samples of rows ra, rb of the block's ring slot k (0 past the slot's
-// live rows, past n_k and on a stream-head chain's warm-up); returns the
-// slot's live rows
-__device__ __forceinline__ int slot_samples(const float* __restrict__ y, const Shape& sh,
-                                            SlotRows& rs, int k, int n_k, int ra, int rb,
-                                            float& ya, float& yb) {
-  if (k >= n_k) {
+// advances rs to the block's next ring slot and loads the samples of rows
+// ra, rb there (0 past the slot's live rows, past the block's last set and
+// on a stream-head chain's warm-up); returns the slot's live rows
+__device__ __forceinline__ int next_slot(const float* __restrict__ y, const Shape& sh,
+                                         SlotRows& rs, int my_sets, int ra, int rb, float& ya,
+                                         float& yb) {
+  if (++rs.slot == sh.n_slots) {
+    rs.slot = 0;
+    ++rs.set;
+  }
+  if (rs.set >= my_sets) {
     ya = yb = 0.0f;
     return 0;
   }
-  const int set = k / sh.n_slots, slot = k - set * sh.n_slots;
-  const bool stored = slot >= sh.warm_slots;
-  if (2 * set + stored != rs.key) {
-    const SetLanes s = set_lanes(sh, blockIdx.x + set * gridDim.x);
-    rs.key = 2 * set + stored;
+  const bool stored = rs.slot >= sh.warm_slots;
+  if (rs.slot == 0 || rs.slot == sh.warm_slots) {
+    const SetLanes s = set_lanes(sh, blockIdx.x + rs.set * gridDim.x);
     rs.per_step = stored ? s.lanes : s.warming;
     rs.a = row_source(sh, s, ra, rs.per_step);
     rs.b = row_source(sh, s, rb, rs.per_step);
   }
-  const int e0 = stored ? sh.overlap + (slot - sh.warm_slots) * sh.slot_steps
-                        : slot * sh.warm_steps;
+  const int e0 = stored ? sh.overlap + (rs.slot - sh.warm_slots) * sh.slot_steps
+                        : rs.slot * sh.warm_steps;
   const int steps = stored ? min(sh.slot_steps, sh.overlap + sh.Tc - e0)
                            : min(sh.warm_steps, sh.overlap - e0);
   const int rows = steps * rs.per_step;
@@ -232,10 +236,10 @@ viterbinet_detect_chunked_kernel(const float* __restrict__ y, const float* __res
   const int ra = kTileRows * group + 16 * (tid / 32 % 4) + lane / 4, rb = ra + 8;
   SlotRows rs;
   float ya, yb;
-  int rows = slot_samples(y, sh, rs, 0, n_k, ra, rb, ya, yb);
+  int rows = next_slot(y, sh, rs, my_sets, ra, rb, ya, yb);
   for (int k = 0; k < n_k; ++k) {
     float na, nb;
-    const int next_rows = slot_samples(y, sh, rs, k + 1, n_k, ra, rb, na, nb);
+    const int next_rows = next_slot(y, sh, rs, my_sets, ra, rb, na, nb);
     ring_acquire(sm.bar, k);
     if (kTileRows * group < rows) {  // uniform over the warpgroup
       float pa[kPriorCols<S>()], pb[kPriorCols<S>()];
@@ -282,8 +286,8 @@ cudaError_t launch(const float* y, const float* w1, const float* b1, const float
 // where C <= 32), which `blocks` blocks take in turn. A set warms up
 // through slots of warm_steps steps of its warming chains, then decodes
 // through slots of slot_steps steps of all its chains (at most 192
-// symbols a slot either way), storing `width` bits at a time (1, 2 or 4,
-// dividing T / C and slot_steps); kernels/acs.py::chunked_geometry picks
+// symbols a slot either way), storing `width` bits at a time (4 where it
+// divides T / C and slot_steps, else 1); kernels/acs.py::chunked_geometry picks
 // them all. Returns the CUDA error of the launch (0 on success).
 extern "C" int viterbinet_detect_chunked(const float* y, const float* w1, const float* b1,
                                          const float* w2, const float* b2, const float* w3,
@@ -298,7 +302,7 @@ extern "C" int viterbinet_detect_chunked(const float* y, const float* w1, const 
       chains_per_block < 1 || chains_per_block > kChainWords ||
       (words && chains_per_block % C != 0) || warm_steps < 1 || warm_steps * warming > kRows ||
       slot_steps < 1 || chains_per_block * slot_steps > kRows ||
-      (width != 1 && width != 2 && width != 4) || store_width(T / C, slot_steps) % width != 0 ||
+      (width != 1 && width != 4) || store_width(T / C, slot_steps) % width != 0 ||
       reinterpret_cast<uintptr_t>(out) % 16 != 0 || blocks < 1 ||
       blocks > (chains + chains_per_block - 1) / chains_per_block)
     return static_cast<int>(cudaErrorInvalidValue);

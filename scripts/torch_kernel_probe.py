@@ -14,8 +14,9 @@ memory and one tile), K1, K2 and K4 at the protocol's 300 x 136, K1, K2
 and K4 at 65536 x 136, K2 and K5 at the engine's 1 x 136, and K6 on the
 device (a CUDA graph of back-to-back calls); with a package whose K4 takes
 its launch geometry (kernels/acs.py::chunked_geometry), also K4 at other
-geometries: its bits stored one float per lane per step, one set per
-block, other chains per set and steps per slot.
+geometries: one set per block, other chains per set and steps per slot,
+and its bits stored one float per lane per step where the wrapper stores
+four.
 
     env PYTHONPATH=. python3 scripts/torch_kernel_probe.py
     env PYTHONPATH=<other checkout> python3 scripts/torch_kernel_probe.py --time
@@ -235,10 +236,10 @@ def main() -> int:
             # K4 at other geometries: (C, chains per set, warm-up steps per slot, stored
             # steps per slot, store width, blocks); blocks = sets is one set per block
             sms = torch.cuda.get_device_properties(0).multi_processor_count
-            variants = ((4, 32, 8, 6, 2, 8192), (4, 32, 8, 6, 1, sms), (4, 32, 6, 6, 2, sms),
-                        (4, 32, 8, 4, 2, sms)) if W == 65536 else \
-                ((4, 12, 16, 16, 2, 100), (4, 12, 21, 16, 1, 100), (4, 12, 21, 10, 2, 100),
-                 (4, 8, 32, 24, 2, 150), (2, 6, 32, 20, 4, 100))
+            variants = ((4, 32, 8, 6, 1, 8192), (4, 32, 6, 6, 1, sms),
+                        (4, 32, 8, 4, 1, sms)) if W == 65536 else \
+                ((4, 12, 16, 16, 1, 100), (4, 12, 21, 10, 1, 100), (4, 8, 32, 24, 1, 150),
+                 (2, 6, 32, 20, 4, 100), (2, 6, 32, 32, 1, 100))
             for C, chains, warm, steps, width, blocks in variants:
                 want = acs.fused_viterbinet_detect_chunked(model, y, C)
                 same = torch.equal(k4_variant(model, y, C, chains, warm, steps, width, blocks), want)

@@ -192,7 +192,7 @@ def test_chunked_geometry_covers_every_chain(W, C, T, overlap):
     assert g.warm_steps * tacs.warming_chains(g.chains, C) <= tacs.K4_SLOT_ROWS
     if C <= tacs.CHAIN_WORDS:
         assert g.chains % C == 0
-    assert g.width in (1, 2, 4) and (T // C) % g.width == 0 and g.slot_steps % g.width == 0
+    assert g.width in (1, 4) and (T // C) % g.width == 0 and g.slot_steps % g.width == 0
     assert g.sets * g.chains >= W * C > (g.sets - 1) * g.chains
     assert 1 <= g.blocks <= min(sms, g.sets)
 
@@ -200,10 +200,10 @@ def test_chunked_geometry_covers_every_chain(W, C, T, overlap):
 def test_chunked_geometry_at_the_protocol_width():
     """300 words at C = 4 and 2 spread over 100 of the 132 SMs, as K1's
     300 words do; 65536 words fill every chain lane of one block per SM."""
-    assert tacs.chunked_geometry(300, 4, 136, 32, 132) == (12, 21, 16, 100, 100, 2)
+    assert tacs.chunked_geometry(300, 4, 136, 32, 132) == (12, 21, 16, 100, 100, 1)
     assert tacs.chunked_geometry(300, 2, 136, 32, 132) == (6, 32, 32, 100, 100, 4)
-    assert tacs.chunked_geometry(65536, 4, 136, 32, 132) == (32, 8, 6, 8192, 132, 2)
-    assert tacs.chunked_geometry(1, 4, 136, 32, 132) == (4, 32, 48, 1, 1, 2)
+    assert tacs.chunked_geometry(65536, 4, 136, 32, 132) == (32, 8, 6, 8192, 132, 1)
+    assert tacs.chunked_geometry(1, 4, 136, 32, 132) == (4, 32, 48, 1, 1, 1)
     assert tacs.chunked_geometry(7, 2, 70, 32, 132) == (2, 32, 96, 7, 7, 1)
     assert tacs.warming_chains(12, 4) == 9 and tacs.warming_chains(5, 40) == 5
 
