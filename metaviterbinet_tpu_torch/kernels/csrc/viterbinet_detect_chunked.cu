@@ -48,9 +48,12 @@
 // does not run.
 //
 // Measured on an H100 80GB HBM3 at 700 W (PERF.md section 6, device ms, a
-// CUDA graph of back-to-back calls): 0.0144 at 300 x 136 with C = 4 and 2
-// (K1 0.0157-0.0159 in the same calls; this kernel's first design 0.0266),
-// 1.066 at 65536 x 136 with C = 4 (K1 0.553; first design 2.84).
+// CUDA graph of back-to-back calls, scripts/torch_kernel_probe.py --time):
+// 0.0142-0.0144 at 300 x 136 with C = 4 and 0.0144-0.0146 with C = 2 (K1
+// 0.0157 in the same call; this kernel's first design 0.0266-0.0270), 1.039
+// at 65536 x 136 with C = 4 (K1 0.546; first design 2.82). The chain alone
+// (K5 over 1200 x 66 priors) takes 0.0086 at 300 x 136, C = 4: the slots'
+// tiles, not the chains, bound it there.
 #include <cuda_runtime.h>
 
 #include "prior_ring.cuh"
