@@ -1077,7 +1077,6 @@ def phase_width(model: viterbinet.ViterbiNet, gen: torch.Generator, card: str) -
         record("fused_viterbinet_detect", W, lambda: acs.fused_viterbinet_detect(model, y),
                lambda: acs.fused_viterbinet_detect_plain(model, y),
                vnet_bound_ms(W, T_PROTO, 16), wide)
-        times[("fused_viterbinet_detect", W)]["sfu_floor_ms"] = sfu_floor_ms(W * T_PROTO)
         print(f"fused_viterbinet_detect W={W}: SFU floor {sfu_floor_ms(W * T_PROTO):.5f} ms "
               f"(100 sigmoids per symbol at {SFU_PER_CLOCK_PER_SM} per clock per SM, published)")
     y, mu = kernel_inputs(1, T_PROTO, gen)
@@ -1090,7 +1089,6 @@ def phase_width(model: viterbinet.ViterbiNet, gen: torch.Generator, card: str) -
                lambda: acs.fused_viterbinet_detect_chunked_plain(model, y, C),
                chunked_bound_ms(W, T_PROTO, C, 16), W == WIDE_W, C=C)
         row = times[("fused_viterbinet_detect_chunked", W, C)]
-        row["sfu_floor_ms"] = sfu_floor_ms(chunked_symbols(W, T_PROTO, C))
         # the chain floor: K5 over priors of the chunked chains' shape, the
         # ACS alone (at 65536 words that many priors make K5 bound by bytes)
         row["chain_floor_ms"] = None
@@ -1100,10 +1098,11 @@ def phase_width(model: viterbinet.ViterbiNet, gen: torch.Generator, card: str) -
             row["chain_floor_ms"] = graph_ms(lambda: acs.viterbi_decode_kernel(priors))
             del priors
         chain = "not measured" if row["chain_floor_ms"] is None else f"{row['chain_floor_ms']:.5f} ms"
-        print(f"fused_viterbinet_detect_chunked W={W} C={C}: bound over "
-              f"{chunked_symbols(W, T_PROTO, C)} symbols through the MLP and the ACS, "
-              f"{chunked_symbols(W, T_PROTO, C) / (W * T_PROTO):.4f}x K1's; chain floor (K5 at "
-              f"{W * C} x {ext} priors) {chain}; SFU floor {row['sfu_floor_ms']:.5f} ms [{card}]")
+        symbols = chunked_symbols(W, T_PROTO, C)
+        print(f"fused_viterbinet_detect_chunked W={W} C={C}: bound over {symbols} symbols "
+              f"through the MLP and the ACS, {symbols / (W * T_PROTO):.4f}x K1's; chain floor "
+              f"(K5 at {W * C} x {ext} priors) {chain}; SFU floor {sfu_floor_ms(symbols):.5f} ms "
+              f"(published rates) [{card}]")
     for W in (1, PROTO_W):
         priors = mlp_priors(model, kernel_inputs(W, T_PROTO, gen)[0])
         record("viterbi_decode_kernel", W, lambda: acs.viterbi_decode_kernel(priors),
@@ -1169,8 +1168,6 @@ def kernel_rows(checks: dict, sl: dict, online: dict, times: dict) -> list:
                 "bound_by_1": one["bound_by"], "checked_1": checks[(name, 1, T_PROTO)]})
         else:
             rows[-1]["tile_priors_max_abs_err"] = {S: checks[("tile", S)] for S in STATES}
-            rows[-1]["sfu_floor_ms"] = main_row["sfu_floor_ms"]
-            rows[-1]["sfu_floor_ms_65536"] = wide_row["sfu_floor_ms"]
     name = "fused_viterbinet_detect_chunked"
     main_row = times[(name, PROTO_W, 4)]
     rows.append({

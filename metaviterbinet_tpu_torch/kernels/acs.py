@@ -54,7 +54,7 @@ _PTR, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "va_detect": (_PTR, _PTR, _PTR) + (_INT,) * 5 + (_PTR,),
     "viterbinet_detect": (_PTR,) * 8 + (_INT,) * 5 + (_PTR,),
-    "viterbinet_detect_chunked": (_PTR,) * 8 + (_INT,) * 10 + (_PTR,),
+    "viterbinet_detect_chunked": (_PTR,) * 8 + (_INT,) * 9 + (_PTR,),
     "viterbi_decode": (_PTR, _PTR, _INT, _INT, _INT, _PTR),
     "online_adapt": (_PTR,) * 20 + (_INT,) * 3 + (_F32,) * 9 + (_PTR,),
 }
@@ -158,15 +158,17 @@ class ChunkedGeometry(NamedTuple):
     slot_steps: int  # stored steps of a ring slot
     sets: int        # chain sets, W C / chains rounded up
     blocks: int      # blocks, each taking every blocks-th set in turn
-    width: int       # floats per bit store
 
 
-K4_SLOT_ROWS = 192  # symbols of a K4 ring slot at most: one tile per producer warpgroup
+# symbols of a K4 ring slot at most: one 64-row tile per producer warpgroup
+# (csrc/viterbinet_detect_chunked.cu's kRows; its launch refuses a larger slot)
+K4_SLOT_ROWS = 192
 
 
 def warming_chains(chains: int, C: int) -> int:
     """The chains of a K4 set of `chains` that run a warm-up: all but the
-    stream-head chunks where a set is whole words (C <= 32), else all."""
+    stream-head chunks where a set is whole words (C <= 32), else all
+    (csrc/viterbinet_detect_chunked.cu::warming_lanes)."""
     return chains - chains // C if C <= CHAIN_WORDS else chains
 
 
@@ -176,22 +178,22 @@ def chunked_geometry(W: int, C: int, T: int, overlap: int, n_sms: int) -> Chunke
     one block per SM and large W fills every chain lane; one block per SM at
     most, which runs its sets one after another. A warm-up slot holds as
     many steps of the set's warming chains as fit in K4_SLOT_ROWS symbols, a
-    stored slot as many steps of all its chains, a multiple of the store
-    width: 4 floats where they divide the chunk length T / C, else 1
-    (csrc/prior_ring.cuh::store_width)."""
+    stored slot as many steps of all its chains, a multiple of 4 where 4
+    divides the chunk length T / C, so that the kernel stores the bits 4 at
+    a time (csrc/prior_ring.cuh::store_width)."""
     n = W * C
     per = max(1, -(-n // n_sms))
     if C <= CHAIN_WORDS:
         chains = min(-(-per // C), CHAIN_WORDS // C) * C
     else:
         chains = min(CHAIN_WORDS, per)
-    Tc = T // C
-    width = 4 if Tc % 4 == 0 else 1
     warming = warming_chains(chains, C)
     warm = min(overlap, K4_SLOT_ROWS // warming) if warming else overlap
     steps = K4_SLOT_ROWS // chains
+    if (T // C) % 4 == 0:
+        steps -= steps % 4
     sets = -(-n // chains)
-    return ChunkedGeometry(chains, warm, steps - steps % width, sets, min(sets, n_sms), width)
+    return ChunkedGeometry(chains, warm, steps, sets, min(sets, n_sms))
 
 
 @functools.lru_cache(maxsize=None)
@@ -434,8 +436,8 @@ def fused_viterbinet_detect_chunked(model: ViterbiNet, y: torch.Tensor, n_chunks
     with torch.cuda.device(y.device):
         rc = lib.viterbinet_detect_chunked(
             y.data_ptr(), *(p.data_ptr() for p in params), out.data_ptr(), W, T,
-            params[4].shape[0], n_chunks, overlap, g.chains, g.warm_steps, g.slot_steps, g.width,
-            g.blocks, torch.cuda.current_stream(y.device).cuda_stream)
+            params[4].shape[0], n_chunks, overlap, g.chains, g.warm_steps, g.slot_steps, g.blocks,
+            torch.cuda.current_stream(y.device).cuda_stream)
     _check_launch("fused_viterbinet_detect_chunked", rc)
     fused_viterbinet_detect_chunked.launches += 1
     return out

@@ -64,7 +64,8 @@ namespace {
 // three producer warpgroups, one 64-symbol tile of each slot apiece, so a
 // slot holds up to 192 symbols
 constexpr int kGroups = 3;
-constexpr int kRows = kGroups * kTileRows;  // symbols of a slot at most
+// symbols of a slot at most (kernels/acs.py::K4_SLOT_ROWS)
+constexpr int kRows = kGroups * kTileRows;
 constexpr int kProducers = 128 * kGroups;   // warps 0 .. 4 kGroups - 1
 constexpr int kThreads = kProducers + 32;   // and the chain warp
 
@@ -88,12 +89,19 @@ struct SetLanes {
   int j0;
 };
 
+// The lanes of a set of `lanes` chains that run a warm-up: all but the
+// stream-head chunks where the set is whole words (C <= 32), else all
+// (kernels/acs.py::warming_chains sizes the warm-up slots by the same rule).
+__host__ __device__ __forceinline__ int warming_lanes(int lanes, int C) {
+  return C <= kChainWords ? lanes - lanes / C : lanes;
+}
+
 __device__ __forceinline__ SetLanes set_lanes(const Shape& sh, int g) {
   SetLanes s;
   s.j0 = g * sh.chains;
   s.lanes = min(sh.chains, sh.n_chains - s.j0);
   s.w0 = s.j0 / sh.C;
-  s.warming = sh.C <= kChainWords ? s.lanes - s.lanes / sh.C : s.lanes;
+  s.warming = warming_lanes(s.lanes, sh.C);
   return s;
 }
 
@@ -188,7 +196,7 @@ viterbinet_detect_chunked_kernel(const float* __restrict__ y, const float* __res
                                  const float* __restrict__ b2, const float* __restrict__ w3,
                                  const float* __restrict__ b3, float* __restrict__ out, int W,
                                  int T, int C, int overlap, int chains_per_block, int warm_steps,
-                                 int slot_steps, int width) {
+                                 int slot_steps) {
   constexpr int kRow = kStride<S>();
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem<S>& sm = *reinterpret_cast<Smem<S>*>(smem_raw);
@@ -228,7 +236,8 @@ viterbinet_detect_chunked_kernel(const float* __restrict__ y, const float* __res
       warm.run = lane < s.lanes && chunk != 0;
       // lane l's bits: chunk `chunk` of word `word`
       run_chains<S, true, kRows>(sm.ring, sm.bar, set * sh.n_slots, s.lanes, slot_steps, sh.Tc,
-                                 width, out + word * T + chunk * sh.Tc, warm);
+                                 store_width(sh.Tc, slot_steps), out + word * T + chunk * sh.Tc,
+                                 warm);
     }
     return;
   }
@@ -267,7 +276,7 @@ template <int S>
 cudaError_t launch(const float* y, const float* w1, const float* b1, const float* w2,
                    const float* b2, const float* w3, const float* b3, float* out, int W, int T,
                    int C, int overlap, int chains_per_block, int warm_steps, int slot_steps,
-                   int width, int blocks, cudaStream_t stream) {
+                   int blocks, cudaStream_t stream) {
   // above the 48 KB a block gets by default (no stream work, so safe while a
   // CUDA graph captures)
   const cudaError_t attr = cudaFuncSetAttribute(viterbinet_detect_chunked_kernel<S>,
@@ -275,8 +284,7 @@ cudaError_t launch(const float* y, const float* w1, const float* b1, const float
                                                 sizeof(Smem<S>));
   if (attr != cudaSuccess) return attr;
   viterbinet_detect_chunked_kernel<S><<<blocks, kThreads, sizeof(Smem<S>), stream>>>(
-      y, w1, b1, w2, b2, w3, b3, out, W, T, C, overlap, chains_per_block, warm_steps, slot_steps,
-      width);
+      y, w1, b1, w2, b2, w3, b3, out, W, T, C, overlap, chains_per_block, warm_steps, slot_steps);
   return cudaGetLastError();
 }
 
@@ -289,32 +297,30 @@ cudaError_t launch(const float* y, const float* w1, const float* b1, const float
 // where C <= 32), which `blocks` blocks take in turn. A set warms up
 // through slots of warm_steps steps of its warming chains, then decodes
 // through slots of slot_steps steps of all its chains (at most 192
-// symbols a slot either way), storing `width` bits at a time (4 where it
-// divides T / C and slot_steps, else 1); kernels/acs.py::chunked_geometry picks
-// them all. Returns the CUDA error of the launch (0 on success).
+// symbols a slot either way), storing 4 bits at a time where 4 divides
+// T / C and slot_steps, else 1 (store_width); kernels/acs.py::chunked_geometry
+// picks them all. Returns the CUDA error of the launch (0 on success).
 extern "C" int viterbinet_detect_chunked(const float* y, const float* w1, const float* b1,
                                          const float* w2, const float* b2, const float* w3,
                                          const float* b3, float* out, int W, int T, int S,
                                          int C, int overlap, int chains_per_block,
-                                         int warm_steps, int slot_steps, int width, int blocks,
+                                         int warm_steps, int slot_steps, int blocks,
                                          cudaStream_t stream) {
   const long chains = static_cast<long>(W) * C;
   const bool words = C <= kChainWords;  // sets of whole words
-  const int warming = words ? chains_per_block - chains_per_block / C : chains_per_block;
   if (C < 1 || T % C != 0 || overlap < 1 || overlap > T / C || chains >= (1L << 31) ||
       chains_per_block < 1 || chains_per_block > kChainWords ||
-      (words && chains_per_block % C != 0) || warm_steps < 1 || warm_steps * warming > kRows ||
-      slot_steps < 1 || chains_per_block * slot_steps > kRows ||
-      (width != 1 && width != 4) || store_width(T / C, slot_steps) % width != 0 ||
-      reinterpret_cast<uintptr_t>(out) % 16 != 0 || blocks < 1 ||
-      blocks > (chains + chains_per_block - 1) / chains_per_block)
+      (words && chains_per_block % C != 0) || warm_steps < 1 ||
+      warm_steps * warming_lanes(chains_per_block, C) > kRows || slot_steps < 1 ||
+      chains_per_block * slot_steps > kRows || reinterpret_cast<uintptr_t>(out) % 16 != 0 ||
+      blocks < 1 || blocks > (chains + chains_per_block - 1) / chains_per_block)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   switch (S) {
-    case 2: err = launch<2>(y, w1, b1, w2, b2, w3, b3, out, W, T, C, overlap, chains_per_block, warm_steps, slot_steps, width, blocks, stream); break;
-    case 4: err = launch<4>(y, w1, b1, w2, b2, w3, b3, out, W, T, C, overlap, chains_per_block, warm_steps, slot_steps, width, blocks, stream); break;
-    case 8: err = launch<8>(y, w1, b1, w2, b2, w3, b3, out, W, T, C, overlap, chains_per_block, warm_steps, slot_steps, width, blocks, stream); break;
-    case 16: err = launch<16>(y, w1, b1, w2, b2, w3, b3, out, W, T, C, overlap, chains_per_block, warm_steps, slot_steps, width, blocks, stream); break;
+    case 2: err = launch<2>(y, w1, b1, w2, b2, w3, b3, out, W, T, C, overlap, chains_per_block, warm_steps, slot_steps, blocks, stream); break;
+    case 4: err = launch<4>(y, w1, b1, w2, b2, w3, b3, out, W, T, C, overlap, chains_per_block, warm_steps, slot_steps, blocks, stream); break;
+    case 8: err = launch<8>(y, w1, b1, w2, b2, w3, b3, out, W, T, C, overlap, chains_per_block, warm_steps, slot_steps, blocks, stream); break;
+    case 16: err = launch<16>(y, w1, b1, w2, b2, w3, b3, out, W, T, C, overlap, chains_per_block, warm_steps, slot_steps, blocks, stream); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

@@ -14,9 +14,7 @@ memory and one tile), K1, K2 and K4 at the protocol's 300 x 136, K1, K2
 and K4 at 65536 x 136, K2 and K5 at the engine's 1 x 136, and K6 on the
 device (a CUDA graph of back-to-back calls); with a package whose K4 takes
 its launch geometry (kernels/acs.py::chunked_geometry), also K4 at other
-geometries: one set per block, other chains per set and steps per slot,
-and its bits stored one float per lane per step where the wrapper stores
-four.
+geometries: one set per block, other chains per set and steps per slot.
 
     env PYTHONPATH=. python3 scripts/torch_kernel_probe.py
     env PYTHONPATH=<other checkout> python3 scripts/torch_kernel_probe.py --time
@@ -27,7 +25,6 @@ exits non-zero if a check fails. With --time it skips the checks and only
 times, so that it can time another checkout's package (an earlier commit,
 unpacked with `git archive`) in the same call: run the two in turns.
 """
-import ctypes
 import importlib.util
 import re
 import shutil
@@ -132,7 +129,7 @@ def sass_counts(name: str) -> dict:
     return counts
 
 
-def k4_variant(model, y, C, chains, warm, steps, width, blocks, overlap=32):
+def k4_variant(model, y, C, chains, warm, steps, blocks, overlap=32):
     """One K4 launch at the given geometry (kernels/acs.py::ChunkedGeometry),
     through its C function (counts no launch); returns the bits."""
     params = acs._mlp_params(model)
@@ -140,7 +137,7 @@ def k4_variant(model, y, C, chains, warm, steps, width, blocks, overlap=32):
     W, T = y.shape
     rc = acs._library("viterbinet_detect_chunked").viterbinet_detect_chunked(
         y.data_ptr(), *(p.data_ptr() for p in params), out.data_ptr(), W, T, 16, C, overlap,
-        chains, warm, steps, width, blocks, torch.cuda.current_stream().cuda_stream)
+        chains, warm, steps, blocks, torch.cuda.current_stream().cuda_stream)
     acs._check_launch("k4_variant", rc)
     return out
 
@@ -234,19 +231,18 @@ def main() -> int:
             print(f"K4 C={C} {W}x136: {ms:.5f} ms on the device [{card}]", flush=True)
         if hasattr(acs, "chunked_geometry"):
             # K4 at other geometries: (C, chains per set, warm-up steps per slot, stored
-            # steps per slot, store width, blocks); blocks = sets is one set per block
+            # steps per slot, blocks); blocks = sets is one set per block
             sms = torch.cuda.get_device_properties(0).multi_processor_count
-            variants = ((4, 32, 8, 6, 1, 8192), (4, 32, 6, 6, 1, sms),
-                        (4, 32, 8, 4, 1, sms)) if W == 65536 else \
-                ((4, 12, 16, 16, 1, 100), (4, 12, 21, 10, 1, 100), (4, 8, 32, 24, 1, 150),
-                 (2, 6, 32, 20, 4, 100), (2, 6, 32, 32, 1, 100))
-            for C, chains, warm, steps, width, blocks in variants:
+            variants = ((4, 32, 8, 6, 8192), (4, 32, 6, 6, sms),
+                        (4, 32, 8, 4, sms)) if W == 65536 else \
+                ((4, 12, 16, 16, 100), (4, 12, 21, 10, 100), (4, 8, 32, 24, 150),
+                 (2, 6, 32, 20, 100))
+            for C, chains, warm, steps, blocks in variants:
                 want = acs.fused_viterbinet_detect_chunked(model, y, C)
-                same = torch.equal(k4_variant(model, y, C, chains, warm, steps, width, blocks), want)
-                ms = smoke.graph_ms(
-                    lambda: k4_variant(model, y, C, chains, warm, steps, width, blocks))
+                same = torch.equal(k4_variant(model, y, C, chains, warm, steps, blocks), want)
+                ms = smoke.graph_ms(lambda: k4_variant(model, y, C, chains, warm, steps, blocks))
                 print(f"K4 variant C={C} {W}x136 chains {chains} warm-up steps {warm} stored "
-                      f"steps {steps} store width {width} blocks {blocks}: {ms:.5f} ms on the "
+                      f"steps {steps} blocks {blocks}: {ms:.5f} ms on the "
                       f"device, bits equal to the wrapper's {same}; wrapper's geometry "
                       f"{tuple(acs.chunked_geometry(W, C, 136, 32, sms))} [{card}]", flush=True)
                 ok &= same

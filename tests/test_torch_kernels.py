@@ -182,9 +182,9 @@ def test_chunked_geometry_covers_every_chain(W, C, T, overlap):
     """K4's launch (csrc/viterbinet_detect_chunked.cu): at most one chain
     warp's 32 chains per set, whole words of them where C <= 32; slots of at
     most 192 symbols, warm-up slots of the warming chains and stored slots
-    of all chains, whose steps are a multiple of the store width, which
-    divides the chunk length; every chain in one set, and at most one block
-    per SM, each with at least one set."""
+    of all chains, whose steps are a multiple of 4 where 4 divides the
+    chunk length (the kernel then stores the bits 4 at a time); every chain
+    in one set, and at most one block per SM, each with at least one set."""
     sms = 132
     g = tacs.chunked_geometry(W, C, T, overlap, sms)
     assert 1 <= g.chains <= tacs.CHAIN_WORDS and 1 <= g.slot_steps and 1 <= g.warm_steps <= overlap
@@ -192,7 +192,7 @@ def test_chunked_geometry_covers_every_chain(W, C, T, overlap):
     assert g.warm_steps * tacs.warming_chains(g.chains, C) <= tacs.K4_SLOT_ROWS
     if C <= tacs.CHAIN_WORDS:
         assert g.chains % C == 0
-    assert g.width in (1, 4) and (T // C) % g.width == 0 and g.slot_steps % g.width == 0
+    assert (T // C) % 4 or g.slot_steps % 4 == 0
     assert g.sets * g.chains >= W * C > (g.sets - 1) * g.chains
     assert 1 <= g.blocks <= min(sms, g.sets)
 
@@ -200,11 +200,11 @@ def test_chunked_geometry_covers_every_chain(W, C, T, overlap):
 def test_chunked_geometry_at_the_protocol_width():
     """300 words at C = 4 and 2 spread over 100 of the 132 SMs, as K1's
     300 words do; 65536 words fill every chain lane of one block per SM."""
-    assert tacs.chunked_geometry(300, 4, 136, 32, 132) == (12, 21, 16, 100, 100, 1)
-    assert tacs.chunked_geometry(300, 2, 136, 32, 132) == (6, 32, 32, 100, 100, 4)
-    assert tacs.chunked_geometry(65536, 4, 136, 32, 132) == (32, 8, 6, 8192, 132, 1)
-    assert tacs.chunked_geometry(1, 4, 136, 32, 132) == (4, 32, 48, 1, 1, 1)
-    assert tacs.chunked_geometry(7, 2, 70, 32, 132) == (2, 32, 96, 7, 7, 1)
+    assert tacs.chunked_geometry(300, 4, 136, 32, 132) == (12, 21, 16, 100, 100)
+    assert tacs.chunked_geometry(300, 2, 136, 32, 132) == (6, 32, 32, 100, 100)
+    assert tacs.chunked_geometry(65536, 4, 136, 32, 132) == (32, 8, 6, 8192, 132)
+    assert tacs.chunked_geometry(1, 4, 136, 32, 132) == (4, 32, 48, 1, 1)
+    assert tacs.chunked_geometry(7, 2, 70, 32, 132) == (2, 32, 96, 7, 7)
     assert tacs.warming_chains(12, 4) == 9 and tacs.warming_chains(5, 40) == 5
 
 
