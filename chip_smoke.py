@@ -46,9 +46,26 @@ Phases, each of which fails the run on error:
               block, nothing trained), each against its recorded
               reference band; launch counts, buffer fill, seconds of
               train-on-miss, of the 300 blocks and of their parts (CUDA
-              events), and the device's idle share over 300 blocks
-              (torch.profiler, a second run); then the first 25
+              events), and the device's idle share (torch.profiler, a
+              second run over PROFILED_BLOCKS blocks); then the first 25
               meta-mode blocks once on the card and once on the CPU;
+  5b. lstm    the LSTM family (2 x 256 LSTM, window 4), which has no kernel,
+              in two processes of its own started after phase 4 and run
+              beside phases 5-7 (see start_phase_lstm); no path of it may
+              launch one of the five kernels. In one process: the
+              aggregated point at 10 dB with seeded random params (cuDNN),
+              its logits and eval tail on the card against the CPU, and
+              under torch.profiler; lstm joint (Trainer.train on the miss,
+              25 minibatches) and lstm online (self-supervised autograd
+              steps, the same checkpoint) over 300 blocks against their
+              reference bands, each also under the profiler
+              (PROFILED_BLOCKS); cuDNN's forward against the unrolled one
+              with the trained params (bits equal outside a margin of
+              1e-4). In the other: meta_lstm's meta_train on the miss (25
+              minibatches) and the first 6 blocks of its meta run, through
+              the first meta event (second-order MAML steps), on the card
+              and on the CPU, with the seconds per step and an estimate of a
+              300-block run. Their output is printed after phase 7;
   6. cli      in the vnet weights directory of phase 5: `evaluate` of the
               trained checkpoint, aggregated through K4 (no training), in
               process, against the vnet joint band and against the same
@@ -57,6 +74,7 @@ Phases, each of which fails the run on error:
               in process;
   7. bf16     Config.dtype='bfloat16': the bf16 logits and the engine detect
               on the card against the CPU, one bf16 word sweep, and no K6;
+              the LSTM's bf16 logits on the card against the CPU;
   8. width    time the kernels and their plain versions on the device (a CUDA
               graph of back-to-back calls) and per eager call: K1 and K2 at
               300 x 136 and 65536 x 136, K2 at 1 x 136, K4 at 300 x 136 with
@@ -74,10 +92,12 @@ Exits non-zero, printing no result, when no CUDA device is present.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
 import io
 import json
+import multiprocessing
 import os
 import shutil
 import subprocess
@@ -94,7 +114,7 @@ from metaviterbinet_tpu_torch.data.dataset import ChannelDataset, generate_words
 from metaviterbinet_tpu_torch.ecc.rs import rs_encode_bits
 from metaviterbinet_tpu_torch.evaluation.trainer import Trainer
 from metaviterbinet_tpu_torch.kernels import acs, online_sgd
-from metaviterbinet_tpu_torch.models import va, viterbinet
+from metaviterbinet_tpu_torch.models import lstm, va, viterbinet
 from metaviterbinet_tpu_torch.online.engine import Draws, run_online, uses_fused_adaptation
 from metaviterbinet_tpu_torch.ops.trellis import calculate_states
 from metaviterbinet_tpu_torch.paths import RESOURCES_DIR, ROOT_DIR
@@ -120,6 +140,28 @@ VNET_JOINT_BAND = (0.031814, 0.012)
 # va_joint: the VA trains nothing, so only the binomial noise of the 288
 # data blocks' bits is in it; the VA's band of VA_BAND
 VA_JOINT_BAND = (0.014149, 0.006)
+# blocks of the by-word runs under torch.profiler: a whole run where it is
+# short, the first blocks where the profiler's record of millions of eager
+# launches would take minutes (meta_vnet) or the host's memory (lstm online)
+PROFILED_BLOCKS = {"meta_vnet": 50, "vnet": 300, "va": 300, "lstm joint": 300,
+                   "lstm online": 5}
+# the LSTM family's cells, the same source and band
+LSTM_JOINT_BAND = (0.030295, 0.012)
+LSTM_ONLINE_BAND = (0.054008, 0.012)
+# meta_lstm on the card and on the CPU: the first 6 blocks, through the
+# first meta event (at block 5), each block's SER within CARD_CPU_BLOCK_TOL
+META_LSTM_BLOCKS = 6
+# the LSTM's two f32 forwards (cuDNN's and the unrolled one), and the card
+# against the CPU, may detect different bits only where the two class
+# logits are within LSTM_MARGIN of each other
+LSTM_MARGIN = 1e-4
+# meta events of a 300-block meta run (blocks 5, 10, .., 295) and the most
+# second-order MAML steps one can take (meta_train_iterations x meta_j_num)
+META_EVENTS, MAX_STEPS_PER_EVENT = 59, 200
+# torch's CPU threads while phase 5b's two processes run beside phases 5-7:
+# two for each of them and four for the main process, on the 8 cores of the
+# card's machine (more threads than cores slow every process many times)
+CHILD_CPU_THREADS, MAIN_CPU_THREADS_BESIDE_CHILDREN = 2, 4
 WIDE_W, PROTO_W, T_PROTO = 65536, 300, 136
 K6_ITERS = 200  # Config.self_supervised_iterations, the protocol's
 # K6 against its plain version: the JAX kernel's contract (5e-6 after 40
@@ -462,7 +504,6 @@ def _max_diff(a: dict, b: dict) -> float:
 # --------------------------------------------------------------- phases
 
 def phase_build() -> None:
-    t0 = time.perf_counter()
     seconds = acs.build_kernels()
     for name, s in seconds.items():
         print(f"build {name}: {s:.1f} s")
@@ -478,7 +519,6 @@ def phase_build() -> None:
         print(f"{name}: {n} HGMMA (wgmma) instructions in its SASS")
         if n == 0:
             fail(f"{name}: no tensor-core instruction in its SASS")
-    print(f"build phase: {time.perf_counter() - t0:.1f} s")
 
 
 KERNEL_CHECK_SHAPES = ((4096, T_PROTO), (4096, 41), (1000, T_PROTO), (1000, 41), (PROTO_W, T_PROTO))
@@ -825,6 +865,7 @@ def online_cfg(mode: str, weights_dir: str) -> Config:
     of 120 info bits + RS nsym=2 on the type-2 test channel, train-on-miss
     at the default train size."""
     modes = {"meta": dict(self_supervised=True, online_meta=True, weights_init="last_frame"),
+             "online": dict(self_supervised=True, online_meta=False),
              "joint": dict(self_supervised=False, online_meta=False)}
     return Config(eval_mode="by_word", fading_taps_type=2, val_frames=12, use_ecc=True,
                   n_symbols=2, val_SNR_start=10.0, val_SNR_end=10.0, train_SNR_start=10.0,
@@ -871,25 +912,42 @@ def run_by_word(name: str, mode: str, weights_dir: str, band: tuple) -> dict:
         fail(f"{name} {mode}: SER per block is not 300 finite values")
     if abs(mean_ber - band[0]) > band[1]:
         fail(f"{name} {mode}: mean data BER {mean_ber} outside {band[0]} +- {band[1]}")
-    # the engine's per-block detect: K5 after the MLP, or the VA's K2
-    engine = "viterbi_decode_kernel" if trainable else "fused_va_detect"
-    if launches[engine] != cfg.n_words("val"):
-        fail(f"{name} {mode}: {engine} launched {launches[engine]} times, not once per block")
-    want_k6 = result.n_gated if mode == "meta" else 0
-    if launches["online_adapt_viterbinet"] != want_k6 or (mode == "meta" and want_k6 == 0):
-        fail(f"{name} {mode}: K6 launched {launches['online_adapt_viterbinet']} times for "
-             f"{result.n_gated} gated blocks")
-    if any(launches[k] for k in ("fused_viterbinet_detect", "fused_va_detect",
-                                 "fused_viterbinet_detect_chunked", "viterbi_decode_kernel")
-           if k != engine):
-        fail(f"{name} {mode}: the by-word path launched another detect kernel: {launches}")
-    if trainable and train_launches["fused_viterbinet_detect"] != cfg.train_minibatch_num:
-        fail(f"{name} {mode}: train-on-miss evaluated through K1 "
-             f"{train_launches['fused_viterbinet_detect']} times, not once per minibatch")
+    # the engine's per-block detect: K5 after the MLP and K6 per gated meta
+    # block for the ViterbiNet family, the VA's K2; the LSTM family none
+    want = dict.fromkeys(KERNELS, 0)
+    want_train = dict.fromkeys(KERNELS, 0)
+    if not trainable:
+        want["fused_va_detect"] = cfg.n_words("val")
+    elif trainer.spec.model is viterbinet:
+        want["viterbi_decode_kernel"] = cfg.n_words("val")
+        want["online_adapt_viterbinet"] = result.n_gated if mode == "meta" else 0
+        want_train["fused_viterbinet_detect"] = cfg.train_minibatch_num  # one eval per minibatch
+        if mode == "meta" and result.n_gated == 0:
+            fail(f"{name} {mode}: no block was gated, so K6 never ran")
+    if launches != want:
+        fail(f"{name} {mode}: by-word launches {launches}, expected {want}")
+    if train_launches != want_train:
+        fail(f"{name} {mode}: train-on-miss launches {train_launches}, expected {want_train}")
     return {"cfg": cfg, "trainer": trainer, "sers": sers, "mean_data_ber": mean_ber,
             "train_s": train_s, "blocks_s": blocks_s, "parts": parts, "launches": launches,
             "train_launches": train_launches, "n_buffer": result.n_buffer,
             "n_gated": result.n_gated}
+
+
+def profiled_blocks(cell: str, name: str, cfg: Config) -> dict:
+    """The device's busy time and idle share over the first
+    PROFILED_BLOCKS[cell] blocks of a by-word run of detector `name`, under
+    torch.profiler: a fresh trainer on the run's checkpoint, so the first
+    val batch of its stream, and its own draws."""
+    n = PROFILED_BLOCKS[cell]
+    trainer = Trainer(cfg, name, verbose=False)
+    params = trainer.load_weights(10.0, cfg.gamma) if trainer.spec.trainable else None
+    tx, rx = trainer.val_dataset.get(10.0, cfg.gamma)
+    h = trainer.decoder_csi(tx.shape[0])
+    busy = device_busy(lambda: run_online(cfg, trainer.spec, params, tx[:n], rx[:n], h[:n],
+                                          trainer.draws))
+    print(busy_line(f"{cell} {n} by-word blocks (a second run)", busy))
+    return dict(busy, blocks=n)
 
 
 def phase_online(weights_dir: str) -> dict:
@@ -898,15 +956,10 @@ def phase_online(weights_dir: str) -> dict:
     joint = run_by_word("vnet", "joint", f"{weights_dir}/vnet", VNET_JOINT_BAND)
     va_joint = run_by_word("va", "joint", f"{weights_dir}/va", VA_JOINT_BAND)
 
-    # the device's idle share over 300 blocks: a second by-word run of
-    # each under the profiler (a fresh trainer on the same checkpoint,
-    # so the first val batch of its stream)
+    # the device's idle share: a second by-word run of each under the
+    # profiler, over PROFILED_BLOCKS of its blocks
     for name, run in (("meta_vnet", meta), ("vnet", joint), ("va", va_joint)):
-        again = Trainer(run["cfg"], name, verbose=False)
-        if again.spec.trainable:
-            again.params = again.load_weights(10.0, run["cfg"].gamma)
-        run["busy"] = device_busy(lambda: again.eval_by_word(10.0, run["cfg"].gamma))
-        print(busy_line(f"{name} 300 by-word blocks (a second run)", run["busy"]))
+        run["busy"] = profiled_blocks(name, name, run["cfg"])
 
     # the first 25 meta-mode blocks on the card and through the CPU plain
     # path, from the same params, blocks and draws
@@ -939,6 +992,206 @@ def phase_online(weights_dir: str) -> dict:
     out["card_vs_cpu"] = {"blocks": n, "max_block_ser_diff": block_diff,
                           "mean_data_ser_diff": mean_diff}
     return out
+
+
+def bits_outside_margin(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Symbols whose detected bit differs between two sets of LSTM logits
+    [..., 2] although both forwards put their two class logits at least
+    LSTM_MARGIN apart."""
+    flip = a.argmax(-1) != b.argmax(-1)
+    margin = torch.minimum((a[..., 1] - a[..., 0]).abs(), (b[..., 1] - b[..., 0]).abs())
+    return int((flip & (margin >= LSTM_MARGIN)).sum())
+
+
+def forwards_line(what: str, a: torch.Tensor, b: torch.Tensor) -> dict:
+    """Compare two sets of LSTM logits of the same words: print and return
+    their largest difference, the bits that differ and those that differ
+    outside the margin."""
+    a, b = a.float().cpu(), b.float().cpu()
+    out = {"max_abs_diff": float((a - b).abs().max()),
+           "bits_differ": int((a.argmax(-1) != b.argmax(-1)).sum()),
+           "bits_differ_outside_margin": bits_outside_margin(a, b),
+           "symbols": a.shape[0] * a.shape[1]}
+    print(f"{what}: max |dlogit| {out['max_abs_diff']:.3e}, {out['bits_differ']} of "
+          f"{out['symbols']} bits differ, {out['bits_differ_outside_margin']} of them with both "
+          f"margins >= {LSTM_MARGIN:g}")
+    return out
+
+
+class CountingDraws(Draws):
+    """The engine's draws, counting the MAML steps they make it take: one
+    per distinct query draw (the engine deduplicates them)."""
+    maml_steps = 0
+
+    def j_hats(self, count, iteration, high):
+        j = super().j_hats(count, iteration, high)
+        self.maml_steps += len(torch.unique(j))
+        return j
+
+
+def no_launches(what: str, launches: dict) -> None:
+    if any(launches.values()):
+        fail(f"{what}: an LSTM path launched a ViterbiNet or VA kernel: {launches}")
+
+
+def in_child(fn, *args) -> tuple:
+    """fn(*args) in a worker process of phase 5b, on CHILD_CPU_THREADS of
+    torch's CPU threads: its result, what it printed and its seconds."""
+    torch.set_num_threads(CHILD_CPU_THREADS)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue(), time.perf_counter() - t0
+
+
+def start_phase_lstm(pool: concurrent.futures.Executor, weights_dir: str, card: str) -> list:
+    """Phase 5b, the LSTM family on the card at full width, in two worker
+    processes: the aggregated point and the lstm joint and lstm online cells
+    in one, meta_lstm in the other. No path of it may launch one of the five
+    kernels (each process counts its own launches). Each is a host-bound
+    loop of eager launches on one core that leaves the card idle most of the
+    time; one after another, after phase 5, they took 811 s of a 1028 s run
+    on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 5), and a host at
+    half that speed would take the time limit. So they run beside phases 5-7 and the main process
+    waits for them before phase 8 times the kernels."""
+    return [pool.submit(in_child, lstm_cells, weights_dir, card),
+            pool.submit(in_child, meta_lstm_cell, f"{weights_dir}/meta_lstm", card)]
+
+
+def finish_phase_lstm(jobs: list) -> dict:
+    """Wait for phase 5b's processes and print what they printed."""
+    (cells, cells_text, cells_s), (meta, meta_text, meta_s) = (job.result() for job in jobs)
+    print("lstm (phase 5b, two processes beside phases 5-7):")
+    print(cells_text + meta_text, end="")
+    print(f"lstm cells process {cells_s:.1f} s, meta_lstm process {meta_s:.1f} s")
+    return dict(cells, meta_lstm=meta, process_seconds={"cells": cells_s, "meta_lstm": meta_s})
+
+
+def lstm_cells(weights_dir: str, card: str) -> dict:
+    """The aggregated point and the lstm joint and lstm online cells."""
+    out = {}
+    # the aggregated eval at 10 dB with seeded random params
+    cfg = Config(val_frames=12)
+    model = lstm.init_params(torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    Trainer(cfg, "lstm", params=model, verbose=False).evaluate()  # warm-up: cuDNN's set-up
+    trainer = Trainer(cfg, "lstm", params=model, verbose=False)
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ber = float(trainer.evaluate()[0])
+    torch.cuda.synchronize()
+    point_s = time.perf_counter() - t0
+    point_launches = read_launches()
+    no_launches("lstm aggregated point", point_launches)
+    if not (np.isfinite(ber) and 0.0 <= ber <= 1.0):
+        fail(f"lstm coded BER {ber} is not in [0, 1]")
+    cpu_trainer = Trainer(cfg, "lstm", device="cpu", params=copy.deepcopy(model).cpu(),
+                          verbose=False)
+    tx, rx = trainer.val_dataset.get(10.0, cfg.gamma)
+    h = trainer.decoder_csi(tx.shape[0])
+    zero_launches()
+    on_card = float(trainer.eval_tail(model, tx, rx, h))
+    no_launches("lstm eval tail", read_launches())
+    on_cpu = float(cpu_trainer.eval_tail(cpu_trainer.params, tx.cpu(), rx.cpu(), h.cpu()))
+    with torch.no_grad():
+        card_cpu = forwards_line(
+            f"lstm (seeded random params) logits of the {tuple(rx.shape)} val batch, card "
+            f"(cuDNN) against the CPU", lstm.logits(lstm.param_dict(model), rx),
+            lstm.logits(lstm.param_dict(cpu_trainer.params), rx.cpu()))
+    busy = device_busy(lambda: trainer.single_eval_at_point(model, 10.0, cfg.gamma))
+    per_1k = point_s / cfg.n_words("val") * 1000
+    print(f"lstm (seeded random params) coded BER at 10 dB: {ber:.6f}, {per_1k:.6f} s per 1000 "
+          f"words, launches {point_launches}; eval tail on one batch: card {on_card:.6f}, CPU "
+          f"{on_cpu:.6f} [{card}]")
+    print(busy_line("lstm point at 10 dB", busy))
+    if card_cpu["bits_differ_outside_margin"] or abs(on_card - on_cpu) > 2e-3:
+        fail("lstm: the card and the CPU disagree on the aggregated point")
+    out["point"] = {"coded_ber_10db": ber, "s_per_1k": per_1k, "busy": busy,
+                    "eval_tail": {"card": on_card, "cpu": on_cpu}, "card_vs_cpu": card_cpu}
+
+    # lstm joint (train-on-miss by Trainer.train), then lstm online in the
+    # same weights directory: it loads the checkpoint and trains nothing
+    for key, mode, band in (("lstm_joint", "joint", LSTM_JOINT_BAND),
+                            ("lstm_online", "online", LSTM_ONLINE_BAND)):
+        run = run_by_word("lstm", mode, f"{weights_dir}/lstm", band)
+        out[key] = {k: v for k, v in run.items() if k not in ("cfg", "trainer", "sers")}
+        out[key]["busy"] = profiled_blocks(f"lstm {mode}", "lstm", run["cfg"])
+    # the two forwards with the trained params, on the card
+    trained = Trainer(online_cfg("joint", f"{weights_dir}/lstm"), "lstm", verbose=False)
+    p = lstm.param_dict(trained.load_weights(10.0, cfg.gamma))
+    rx2 = trained.val_dataset.get(10.0, cfg.gamma)[1]
+    with torch.no_grad():
+        two = forwards_line(f"lstm (trained) logits of the {tuple(rx2.shape)} val batch, cuDNN "
+                            f"against the unrolled forward, on the card",
+                            lstm.logits(p, rx2), lstm.logits_unrolled(p, rx2))
+    if two["bits_differ_outside_margin"]:
+        fail("lstm: cuDNN's and the unrolled forward detect different bits outside the margin")
+    out["fused_vs_unrolled"] = two
+    return out
+
+
+def meta_lstm_cell(weights_dir: str, card: str) -> dict:
+    """meta_lstm in `weights_dir`: meta_train on the miss, then the first
+    META_LSTM_BLOCKS blocks of the by-word meta run, through its first meta
+    event, on the card and on the CPU; the seconds per second-order MAML step and an
+    estimate of a 300-block run. Runs in a process of its own (see
+    start_phase_lstm)."""
+    mcfg = online_cfg("meta", weights_dir)
+    mtrainer = Trainer(mcfg, "meta_lstm", verbose=False)
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = mtrainer.load_weights(10.0, mcfg.gamma)
+    torch.cuda.synchronize()
+    meta_train_s = time.perf_counter() - t0
+    no_launches("meta_lstm meta_train", read_launches())
+    tx, rx = mtrainer.val_dataset.get(10.0, mcfg.gamma)
+    h = mtrainer.decoder_csi(tx.shape[0])
+
+    def first_blocks(device: str, m, n: int) -> dict:
+        draws = CountingDraws(mcfg, mtrainer.spec, torch.device(device),
+                              torch.Generator(device=device).manual_seed(SEED),
+                              torch.Generator().manual_seed(SEED))
+        spans = CudaSpans() if device == "cuda" else contextlib.nullcontext
+        zero_launches()
+        t0 = time.perf_counter()
+        result = run_online(mcfg, mtrainer.spec, m, tx[:n].to(device), rx[:n].to(device),
+                            h[:n].to(device), draws, spans=spans)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            no_launches("meta_lstm by-word blocks", read_launches())
+        run = {"s": time.perf_counter() - t0, "sers": result.ser_by_word,
+               "maml_steps": draws.maml_steps, "n_gated": result.n_gated,
+               "parts": spans.seconds() if device == "cuda" else None}
+        print(f"meta_lstm first {n} blocks on {device}: {run['s']:.2f} s, {draws.maml_steps} "
+              f"second-order MAML steps, {result.n_gated} gated blocks, parts {run['parts']}")
+        return run
+
+    n = META_LSTM_BLOCKS
+    runs = {"cuda": first_blocks("cuda", params, n)}
+    if not runs["cuda"]["maml_steps"]:
+        fail(f"meta_lstm: no meta event in the first {n} blocks")
+    runs["cpu"] = first_blocks("cpu", copy.deepcopy(params).cpu(), n)
+    block_diff = float(np.abs(runs["cuda"]["sers"] - runs["cpu"]["sers"]).max())
+    print(f"meta_lstm first {n} blocks, card against CPU: largest per-block SER difference "
+          f"{block_diff:.6f} (limit {CARD_CPU_BLOCK_TOL:.6f}); card "
+          f"{runs['cuda']['sers'].tolist()}, CPU {runs['cpu']['sers'].tolist()}")
+    if block_diff > CARD_CPU_BLOCK_TOL:
+        fail("meta_lstm: the card and the CPU disagree on the first blocks")
+    steps = runs["cuda"]["maml_steps"]
+    meta_s = runs["cuda"]["parts"]["meta"][2]
+    per_step = meta_s / steps
+    estimate = META_EVENTS * MAX_STEPS_PER_EVENT * per_step
+    print(f"meta_lstm second-order MAML step on the card: {per_step:.4f} s per step over {steps} "
+          f"steps ({meta_s:.2f} s of meta adaptation, host clock); meta_train on the miss "
+          f"{meta_train_s:.2f} s for {mcfg.train_minibatch_num} minibatches. Estimate, not a "
+          f"measurement: a 300-block meta run takes about {META_EVENTS} events x at most "
+          f"{MAX_STEPS_PER_EVENT} steps x {per_step:.4f} s = {estimate:.0f} s at most [{card}]")
+    return {"meta_train_s": meta_train_s, "blocks": n, "max_block_ser_diff": block_diff,
+            "card_s": runs["cuda"]["s"], "cpu_s": runs["cpu"]["s"], "maml_steps": steps,
+            "s_per_maml_step": per_step, "full_run_estimate_s": estimate,
+            "parts": runs["cuda"]["parts"]}
 
 
 def run_cli(argv: list) -> dict:
@@ -1042,8 +1295,34 @@ def phase_bf16(model: viterbinet.ViterbiNet) -> dict:
         fail(f"bf16 word sweep: loss {loss} or params not finite")
     if fused != {"float32": True, "bfloat16": False}:
         fail(f"bf16: K6 must not run the bf16 self-supervised step: {fused}")
+
+    # the LSTM in bf16: the unrolled forward, every op rounded to bf16, on
+    # the first 50 words, through its spec's score
+    lstm_model = lstm.init_params(torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    lstm_cpu = copy.deepcopy(lstm_model).cpu()
+    lstm_spec = Trainer(cfg, "lstm", params=lstm_model, verbose=False).spec
+    lstm_cpu_spec = Trainer(cfg, "lstm", device="cpu", params=lstm_cpu, verbose=False).spec
+    y = rx[:50]
+    zero_launches()
+    with torch.no_grad():
+        lstm_card = lstm_spec.score(lstm.param_dict(lstm_model), y).cpu()
+        lstm_bits = lstm_spec.detect(lstm_model, y, None).cpu()
+    no_launches("lstm bf16", read_launches())
+    with torch.no_grad():
+        lstm_cpu_logits = lstm_cpu_spec.score(lstm.param_dict(lstm_cpu), y.cpu())
+    lstm_diff = float((lstm_card - lstm_cpu_logits).abs().max())
+    lstm_limit = BF16_LOGIT_TOL * max(1.0, float(lstm_cpu_logits.abs().max()))
+    lstm_mismatch = int((lstm_bits != lstm_cpu_spec.detect(lstm_cpu, y.cpu(), None)).sum())
+    print(f"lstm bf16 logits of {tuple(y.shape)} val words, card against CPU: max |diff| "
+          f"{lstm_diff:.3e} (limit {lstm_limit:.3e}), "
+          f"{float((lstm_card != lstm_cpu_logits).float().mean()):.3e} of them differ; "
+          f"{lstm_mismatch} of {y.numel()} detected bits differ")
+    if lstm_card.dtype != torch.float32 or not lstm_diff <= lstm_limit:
+        fail("lstm bf16 logits: the card and the CPU disagree")
     return {"logit_max_diff": float(diff.max()), "logit_limit": limit,
-            "engine_bit_mismatch": mismatch, "word_sweep_loss": loss, "word_sweep_s": sweep_s}
+            "engine_bit_mismatch": mismatch, "word_sweep_loss": loss, "word_sweep_s": sweep_s,
+            "lstm_logit_max_diff": lstm_diff, "lstm_logit_limit": lstm_limit,
+            "lstm_bits_differ": lstm_mismatch}
 
 
 CHUNKED_TIMED = ((PROTO_W, 2), (PROTO_W, 4), (WIDE_W, 4))
@@ -1231,18 +1510,34 @@ def main() -> int:
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(card)
 
-    phase_build()
+    seconds = {}
+
+    def timed(name: str, phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        seconds[name] = time.perf_counter() - t0
+        print(f"{name} phase: {seconds[name]:.1f} s")
+        return out
+
+    timed("build", phase_build)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     model = viterbinet.init_params(16, gen, device="cuda")
-    with tempfile.TemporaryDirectory() as weights_dir:
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=2, mp_context=multiprocessing.get_context("spawn"))
+    with tempfile.TemporaryDirectory() as weights_dir, pool:
         trained = trained_vnet(f"{weights_dir}/one_minibatch")
-        checks = phase_kernels(model, trained, gen)
-        sl = phase_slice(model, trained)
-        anchors = phase_anchors()
-        online = phase_online(weights_dir)
-        cli_out = phase_cli(f"{weights_dir}/vnet")
-    bf16 = phase_bf16(model)
-    times = phase_width(model, gen, card)
+        checks = timed("kernels", phase_kernels, model, trained, gen)
+        sl = timed("slice", phase_slice, model, trained)
+        anchors = timed("anchors", phase_anchors)
+        lstm_jobs = start_phase_lstm(pool, weights_dir, card)
+        threads = torch.get_num_threads()
+        torch.set_num_threads(MAIN_CPU_THREADS_BESIDE_CHILDREN)
+        online = timed("online", phase_online, weights_dir)
+        cli_out = timed("cli", phase_cli, f"{weights_dir}/vnet")
+        bf16 = timed("bf16", phase_bf16, model)
+        lstm_out = timed("lstm (the wait after phase 7)", finish_phase_lstm, lstm_jobs)
+        torch.set_num_threads(threads)
+    times = timed("width", phase_width, model, gen, card)
 
     print(json.dumps({"kernels": kernel_rows(checks, sl, online, times), "card": card,
                       "eval_s_per_1000_words": {
@@ -1252,7 +1547,8 @@ def main() -> int:
                       "va_coded_ber_7_to_12db": sl["va_ber"],
                       "vnet_coded_ber_10db": {"random_params": sl["vnet_ber_10db"],
                                               "trained_params": sl["vnet_trained_ber_10db"]},
-                      "anchors": anchors, "by_word_10db": online, "cli": cli_out, "bf16": bf16}))
+                      "anchors": anchors, "by_word_10db": online, "lstm": lstm_out,
+                      "cli": cli_out, "bf16": bf16, "phase_seconds": seconds}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

@@ -41,7 +41,6 @@ from metaviterbinet_tpu_torch.detectors import (
     DETECTORS, DetectorSpec, with_compute_dtype, with_time_chunks)
 from metaviterbinet_tpu_torch.device import resolve_device, use_f32_matmuls
 from metaviterbinet_tpu_torch.ecc.rs import rs_decode_bits, rs_encode_bits
-from metaviterbinet_tpu_torch.models import viterbinet
 from metaviterbinet_tpu_torch.online.engine import Draws, OnlineResult, run_online
 from metaviterbinet_tpu_torch.ops.channel import estimate_channel_batch
 from metaviterbinet_tpu_torch.ops.metrics import error_rates
@@ -64,7 +63,8 @@ class Trainer:
             use_f32_matmuls()
         if isinstance(detector, str):
             if detector not in DETECTORS:
-                raise NotImplementedError(f"detector {detector!r} is not ported yet")
+                raise ValueError(f"unknown detector {detector!r}; expected one of "
+                                 f"{sorted(DETECTORS)}")
             detector = DETECTORS[detector]
         self.spec = with_time_chunks(with_compute_dtype(detector, cfg.dtype),
                                      cfg.eval_time_chunks, cfg.decode_overlap,
@@ -81,10 +81,12 @@ class Trainer:
         # params from the caller are evaluated as given; otherwise checkpoints
         self.params = params
         self._fixed_params = params is not None
-        self.loss_fn = None
+        self.loss_fn = self.meta_loss_fn = None
         if self.spec.trainable:
-            self.loss_fn = make_loss_fn(self.spec.score, self.spec.label_kind, cfg.memory_length,
-                                        self.spec.subsample_loss, cfg.loss_type)
+            self.loss_fn, self.meta_loss_fn = (
+                make_loss_fn(score, self.spec.label_kind, cfg.memory_length,
+                             self.spec.subsample_loss, cfg.loss_type)
+                for score in (self.spec.score, self.spec.meta_score))
         self._data_indices = torch.as_tensor(cfg.data_indices("val"), device=self.device)
         # entered around each online block's parts (online/engine.py::run_online)
         self.spans: Callable[[str], Any] = contextlib.nullcontext
@@ -233,7 +235,7 @@ class Trainer:
         for snr in (float(s) for s in cfg.snr_range("train")):
             self._log(f"SNR - {snr}, Gamma - {cfg.gamma}")
             model = self.init_params()
-            params = viterbinet.param_dict(model)
+            params = self.spec.model.param_dict(model)
             opt_state = optimizer.init(params)
             best_ser = math.inf
             for minibatch in range(1, cfg.train_minibatch_num + 1):
@@ -261,13 +263,13 @@ class Trainer:
         evaluation (trainer.py:420-423)."""
         cfg = self.cfg
         optimizer = Optimizer(cfg.optimizer_type, cfg.lr, cfg.clip_grad_norm)
-        maml_step = make_maml_step(self.loss_fn, optimizer, cfg.meta_lr, cfg.MAML)
+        maml_step = make_maml_step(self.meta_loss_fn, optimizer, cfg.meta_lr, cfg.MAML)
         w = cfg.window_size
         n_words = cfg.n_words("train")
         for snr in (float(s) for s in cfg.snr_range("train")):
             self._log(f"SNR - {snr}, Gamma - {cfg.gamma} (meta)")
             model = self.init_params()
-            params = viterbinet.param_dict(model)
+            params = self.spec.model.param_dict(model)
             opt_state = optimizer.init(params)
             for minibatch in range(1, cfg.train_minibatch_num + 1):
                 tx, rx = self.train_dataset.get(snr, cfg.gamma)
@@ -304,4 +306,4 @@ class Trainer:
             if ckpt is None:
                 raise FileNotFoundError(
                     f"training did not produce a checkpoint for snr {snr} gamma {gamma}")
-        return viterbinet.from_params(ckpt["params"], self.device)
+        return self.spec.model.from_params(ckpt["params"], self.device)

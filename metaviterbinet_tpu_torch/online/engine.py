@@ -34,7 +34,9 @@ updates, CUDA graphs) is later work.
 The self-supervised step for the meta loss (CE over states, no
 subsampling) with Adam and no clipping, in f32, is ONE launch of the fused
 kernel (kernels/online_sgd.py) per gated block; any other loss, optimizer
-or compute dtype runs `self_supervised_iterations` autograd steps.
+or compute dtype, and the LSTM family's bit labels, runs
+`self_supervised_iterations` autograd steps (the LSTM's through its fused
+forward). The MAML step goes through the spec's `meta_score`.
 """
 from __future__ import annotations
 
@@ -48,7 +50,6 @@ import torch
 from metaviterbinet_tpu_torch.config import Config
 from metaviterbinet_tpu_torch.ecc.rs import rs_decode_bits, rs_encode_bits
 from metaviterbinet_tpu_torch.kernels.online_sgd import online_adapt_viterbinet
-from metaviterbinet_tpu_torch.models.viterbinet import param_dict
 from metaviterbinet_tpu_torch.ops.trellis import calculate_states
 from metaviterbinet_tpu_torch.train.losses import make_loss_fn, select_batch
 from metaviterbinet_tpu_torch.train.meta import make_maml_step, sorted_unique
@@ -117,10 +118,11 @@ def run_online(cfg: Config, spec, params, tx_words: torch.Tensor, rx_words: torc
 
     tx_words [n_words, block_length] true info bits (SER scoring, pilots);
     rx_words [n_words, T] received samples; h_words [n_words, L] decoder-side
-    CSI (the VA's only). `params` (a ViterbiNet, None for the VA) is copied,
-    not changed. `spans(name)` is entered around each block's "detect"
-    (detect, RS decode, SER), "sync" (inside "detect": the read of the SER),
-    "adapt" (self-supervision) and "meta" (meta adaptation), for timing."""
+    CSI (the VA's only). `params` (a model of the spec's family, None for
+    the VA) is copied, not changed. `spans(name)` is entered around each
+    block's "detect" (detect, RS decode, SER), "sync" (inside "detect": the
+    read of the SER), "adapt" (self-supervision) and "meta" (meta
+    adaptation), for timing."""
     n_words, T = rx_words.shape
     cap, L, w = cfg.buffer_capacity, cfg.memory_length, cfg.window_size
     nsym, subframes = cfg.n_symbols, cfg.subframes_in_frame
@@ -130,7 +132,7 @@ def run_online(cfg: Config, spec, params, tx_words: torch.Tensor, rx_words: torc
     self_sup = trainable and cfg.self_supervised
 
     model = copy.deepcopy(params) if trainable else None
-    p = param_dict(model) if trainable else None
+    p = spec.model.param_dict(model) if trainable else None
     optimizer = opt_state = None
     if meta or self_sup:
         optimizer = Optimizer(cfg.optimizer_type, cfg.lr, cfg.clip_grad_norm)
@@ -138,10 +140,12 @@ def run_online(cfg: Config, spec, params, tx_words: torch.Tensor, rx_words: torc
         loss_fn = make_loss_fn(spec.score, spec.label_kind, L, spec.subsample_loss, cfg.loss_type)
     fused = self_sup and uses_fused_adaptation(cfg, spec)
     if meta:
-        maml_step = make_maml_step(loss_fn, optimizer, cfg.meta_lr, cfg.MAML)
+        maml_loss_fn = make_loss_fn(spec.meta_score, spec.label_kind, L, spec.subsample_loss,
+                                    cfg.loss_type)
+        maml_step = make_maml_step(maml_loss_fn, optimizer, cfg.meta_lr, cfg.MAML)
         saved = _snapshot(p)
-        meta_init = _snapshot(param_dict(meta_init_params)) if meta_init_params is not None \
-            else saved
+        meta_init = saved if meta_init_params is None \
+            else _snapshot(spec.model.param_dict(meta_init_params))
         if cfg.weights_init not in ("last_frame", "random", "meta_training"):
             raise ValueError(f"No such weights init: {cfg.weights_init}")
 
@@ -208,7 +212,7 @@ def run_online(cfg: Config, spec, params, tx_words: torch.Tensor, rx_words: torc
                 if cfg.weights_init == "last_frame":
                     _restore(p, saved)
                 elif cfg.weights_init == "random":
-                    _restore(p, param_dict(draws.init_params(count)))
+                    _restore(p, spec.model.param_dict(draws.init_params(count)))
                     opt_state = optimizer.init(p)
                 else:
                     _restore(p, meta_init)

@@ -3,7 +3,8 @@ train/losses.py).
 
 Parity notes:
   - ViterbiNet trains with CE between per-symbol state logits and trellis
-    state labels (reference vnet_trainer.py:37-47).
+    state labels (reference vnet_trainer.py:37-47); the LSTM with CE
+    between per-symbol class logits and bit labels (lstm_trainer.py:30-40).
   - `select_batch` is the reference's index-proportional multinomial
     subsampling without replacement (trainer.py:534-544), index 0 never
     drawn (its weight is 0). The caller draws the indices and passes them to
@@ -44,17 +45,19 @@ def make_loss_fn(score_fn: Callable, label_kind: str, memory_length: int, subsam
                  loss_type: str = "CrossEntropy") -> Callable:
     """Build loss(params, rx, tx, idx=None) for a detector's score function.
 
-    label_kind 'states': CE over trellis states (ViterbiNet). With
-    `subsample`, `idx` (a select_batch draw over the label count) picks the
-    symbols; otherwise all symbols with a label contribute."""
-    if label_kind != "states":
+    label_kind 'states': CE over trellis states (ViterbiNet); 'bits': CE
+    over bit classes, the labels tx.reshape(-1) (LSTM). With `subsample`,
+    `idx` (a select_batch draw over the label count) picks the symbols;
+    otherwise all symbols with a label contribute."""
+    if label_kind not in ("states", "bits"):
         raise ValueError(f"unknown label kind {label_kind}")
 
     def loss_fn(params, rx: torch.Tensor, tx: torch.Tensor,
                 idx: Optional[torch.Tensor] = None) -> torch.Tensor:
         logits = score_fn(params, rx)
         flat = logits.reshape(-1, logits.shape[-1])
-        labels = calculate_states(memory_length, tx)
+        labels = calculate_states(memory_length, tx) if label_kind == "states" \
+            else tx.reshape(-1)
         # tx may be the 120-bit info word while logits span the 136-symbol
         # codeword: indices run over the LABEL count and index both
         # (trainer.py:542-544 via vnet_trainer.py:45), so symbols past the

@@ -4,7 +4,9 @@ reference trainer.py:425-453).
 Inner: theta' = theta - meta_lr * grad L(theta; support). Outer: the
 gradient of L(theta'; query) with respect to theta, applied by the optimizer.
 Second-order MAML differentiates through the inner gradient
-(`create_graph=True`); first-order MAML treats it as a constant.
+(`create_graph=True`); first-order MAML treats it as a constant. The loss
+must be built on a score that is twice differentiable on the card
+(DetectorSpec.meta_score: the LSTM's unrolled recurrence, not cuDNN's).
 """
 from __future__ import annotations
 

@@ -18,6 +18,8 @@ from metaviterbinet_tpu_torch.kernels import acs
 from metaviterbinet_tpu_torch.models import viterbinet
 from metaviterbinet_tpu_torch.utils.logging import MetricsLogger
 from metaviterbinet_tpu_torch.utils.profiling import Timer, trace
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 
 # 56 info bits + 8 parity bits: T = 64 splits into two chunks of 32, the
 # default decode_overlap
@@ -93,7 +95,7 @@ def test_cli_rejects_unknown_field_and_unported_commands():
         with pytest.raises(SystemExit):
             cli.main([command])
     with pytest.raises(SystemExit):
-        cli.main(["evaluate", "--detector", "lstm", "--device", "cpu"])
+        cli.main(["evaluate", "--detector", "multistream_lstm", "--device", "cpu"])
 
 
 def test_cli_set_parses_like_the_jax_cli():
@@ -123,6 +125,28 @@ def test_cli_train_then_chunked_evaluate(tmp_path, capsys, monkeypatch):
     assert chunked == [2] and got["n_points"] == 1
     assert cli.main(["evaluate", *common, *sets]) == 0
     assert _cli_json(capsys)["mean_ser"] == got["mean_ser"]
+
+
+@pytest.mark.parametrize("detector", ["lstm", "meta_lstm"])
+def test_cli_evaluate_lstm_trains_on_the_miss(tmp_path, capsys, monkeypatch, detector):
+    """`evaluate --detector lstm|meta_lstm`, the choices the registry gives:
+    the miss trains the family's checkpoint, then the aggregated eval runs;
+    the same command again loads it with no training, and twice gives the
+    same BER (the first run's training drew val batches for its minibatch
+    scores, so its own eval batch comes later in the stream)."""
+    argv = ["evaluate", "--detector", detector, "--snr", "10", "--device", "cpu",
+            "--weights-dir", str(tmp_path), "--set"] + [f"{k}={v}" for k, v in TINY.items()]
+    assert cli.main(argv) == 0
+    out = _cli_json(capsys)
+    assert (out["detector"], out["eval_mode"], out["n_points"]) == (detector, "aggregated", 1)
+    assert 0.0 <= out["mean_ser"] <= 1.0
+    ckpt = torch.load(tmp_path / "snr_10.0_gamma_0.2.pt", weights_only=True)
+    assert "w_hh1" in ckpt["params"]
+    monkeypatch.setattr(Trainer, "train", lambda self: pytest.fail("trained again"))
+    assert cli.main(argv) == 0
+    again = _cli_json(capsys)["mean_ser"]
+    assert cli.main(argv) == 0
+    assert _cli_json(capsys)["mean_ser"] == again
 
 
 def test_cli_runs_on_the_card_by_default():

@@ -1,16 +1,19 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+LSTM family's forwards, MAML step and online step, on a card.
 
 Marked `cuda`; each test skips without a CUDA device. The file imports no
 JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
+import copy
+
 import pytest
 import torch
 
 import chip_smoke
 from metaviterbinet_tpu_torch.kernels import acs, online_sgd
-from metaviterbinet_tpu_torch.models import va, viterbinet
+from metaviterbinet_tpu_torch.models import lstm, va, viterbinet
 from metaviterbinet_tpu_torch.ops.trellis import calculate_states
 from metaviterbinet_tpu_torch.train.optim import Optimizer
 
@@ -287,3 +290,93 @@ def test_chunked_kernel_bit_identical_to_k1_on_channel_words(gen, tmp_path, C):
     y = _channel_words(300, gen)
     assert torch.equal(acs.fused_viterbinet_detect_chunked(model, y, C, 32),
                        acs.fused_viterbinet_detect(model, y))
+
+
+# ------------------------------------------------------------------ the LSTM family
+
+def _trained_lstm(tmp_path):
+    """An LSTM after one training minibatch on the card (its margins are
+    those of a detector, not of random params)."""
+    from metaviterbinet_tpu_torch import Config
+    from metaviterbinet_tpu_torch.evaluation.trainer import Trainer
+    return Trainer(Config(train_minibatch_num=1), "lstm", weights_dir=str(tmp_path),
+                   verbose=False).train()
+
+
+def test_lstm_logits_on_cudnn_match_the_cpu(gen, tmp_path):
+    """The fused forward on cuDNN (TF32 off) against PyTorch's CPU LSTM at
+    the protocol's 300 x 136: within rtol 1e-4, atol 1e-5, and the bits
+    equal except where the CPU's two class logits are within
+    chip_smoke.LSTM_MARGIN of each other."""
+    model = _trained_lstm(tmp_path)
+    y = _channel_words(300, gen)
+    assert not torch.backends.cudnn.allow_tf32
+    with torch.no_grad():
+        card = lstm.logits(lstm.param_dict(model), y).cpu()
+        cpu = lstm.logits(lstm.param_dict(copy.deepcopy(model).cpu()), y.cpu())
+    torch.testing.assert_close(card, cpu, rtol=1e-4, atol=1e-5)
+    assert chip_smoke.bits_outside_margin(card, cpu) == 0
+
+
+def test_lstm_fused_and_unrolled_forwards_agree_on_the_card(gen, tmp_path):
+    """cuDNN's recurrence and the unrolled one round apart in f32; at 300 x
+    136 with trained params their bits are equal except where the two class
+    logits are within chip_smoke.LSTM_MARGIN of each other."""
+    model = _trained_lstm(tmp_path)
+    y = _channel_words(300, gen)
+    with torch.no_grad():
+        fused = lstm.logits(lstm.param_dict(model), y)
+        unrolled = lstm.logits_unrolled(lstm.param_dict(model), y)
+    torch.testing.assert_close(fused, unrolled, rtol=1e-4, atol=1e-5)
+    assert chip_smoke.bits_outside_margin(fused, unrolled) == 0
+
+
+def test_lstm_second_order_maml_step_on_the_card_matches_the_cpu(gen):
+    """meta_lstm's second-order MAML step at T = 136 (support and query one
+    coded word each) runs on the card, where cuDNN has no double backward,
+    through the spec's meta_score, and gives the CPU's params within 1e-5."""
+    from metaviterbinet_tpu_torch.detectors import DETECTORS
+    from metaviterbinet_tpu_torch.train.losses import make_loss_fn
+    from metaviterbinet_tpu_torch.train.meta import make_maml_step
+    model = lstm.init_params(gen, device="cuda")
+    start = {k: v.detach().cpu() for k, v in lstm.param_dict(model).items()}
+    rx = _channel_words(2, gen)
+    tx = torch.randint(0, 2, (2, 136), generator=gen, device="cuda").float()
+    out = {}
+    for device, m in (("cuda", model), ("cpu", copy.deepcopy(model).cpu())):
+        p = lstm.param_dict(m)
+        opt = Optimizer("Adam", 1e-3)
+        loss_fn = make_loss_fn(DETECTORS["meta_lstm"].meta_score, "bits", 4, False)
+        step = make_maml_step(loss_fn, opt, 0.1, second_order=True)
+        r, t = rx.to(device), tx.to(device)
+        step(p, opt.init(p), r[:1], t[:1], r[1:], t[1:])
+        out[device] = {k: v.detach().cpu() for k, v in p.items()}
+    for k, v in out["cpu"].items():
+        assert float((out["cuda"][k] - v).abs().max()) <= 1e-5, k
+        assert not torch.equal(out["cuda"][k], start[k]), k
+
+
+def test_lstm_online_step_launches_no_kernel(gen):
+    """lstm online on the card: the engine's self-supervised step runs as
+    autograd steps on the fused forward, writes the module's own (cuDNN-
+    flattened) tensors in place, and launches none of the five kernels."""
+    import warnings
+    from metaviterbinet_tpu_torch import Config
+    from metaviterbinet_tpu_torch.detectors import DETECTORS
+    from metaviterbinet_tpu_torch.online.engine import Draws, run_online
+    cfg = Config(val_block_length=120, n_symbols=2, val_frames=1, subframes_in_frame=25,
+                 self_supervised=True, self_supervised_iterations=2, ser_thresh=1.0)
+    model = lstm.init_params(gen, device="cuda")
+    rx = _channel_words(3, gen)
+    tx = torch.randint(0, 2, (3, 120), generator=gen, device="cuda").float()
+    draws = Draws(cfg, DETECTORS["lstm"], torch.device("cuda"), gen, torch.Generator())
+    chip_smoke.zero_launches()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        result = run_online(cfg, DETECTORS["lstm"], model, tx, rx,
+                            torch.zeros((3, 4), device="cuda"), draws)
+    assert chip_smoke.read_launches() == dict.fromkeys(chip_smoke.KERNELS, 0)
+    assert not [w for w in caught if "contiguous chunk" in str(w.message)]
+    assert result.n_gated == 3
+    moved = lstm.param_dict(result.params)["w_hh0"]
+    assert not torch.equal(moved, lstm.param_dict(model)["w_hh0"])

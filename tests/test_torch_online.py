@@ -24,6 +24,7 @@ from metaviterbinet_tpu.data.dataset import ChannelDataset as JChannelDataset
 from metaviterbinet_tpu.detectors import DETECTORS as JDETECTORS
 from metaviterbinet_tpu.detectors import with_compute_dtype as j_with_compute_dtype
 from metaviterbinet_tpu.ecc.rs import rs_encode_bits as j_rs_encode_bits
+from metaviterbinet_tpu.models import lstm as jlstm
 from metaviterbinet_tpu.models import viterbinet as jvnet
 from metaviterbinet_tpu.online.engine import make_online_engine
 from metaviterbinet_tpu.ops.channel import estimate_channel_batch as j_taps
@@ -34,6 +35,8 @@ from metaviterbinet_tpu_torch.detectors import DETECTORS, with_compute_dtype
 from metaviterbinet_tpu_torch.evaluation.trainer import Trainer
 from metaviterbinet_tpu_torch.online.engine import Draws, run_online, uses_fused_adaptation
 from metaviterbinet_tpu_torch.weights import params_from_jax, params_to_numpy
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 
 PARAMS_ATOL = 1e-5
 
@@ -56,8 +59,8 @@ class JaxDraws(Draws):
     there: per block, (key, k_init, k_meta) = split(key, 3) when meta runs,
     then (key, k_ss) = split(key) when self-supervision runs)."""
 
-    def __init__(self, cfg, key, n_words, meta, self_sup):
-        self.cfg = cfg
+    def __init__(self, cfg, name, key, n_words, meta, self_sup):
+        self.cfg, self.name = cfg, name
         self.k_init, self.k_meta, self.k_ss = {}, {}, {}
         for count in range(n_words):
             if meta:
@@ -74,8 +77,15 @@ class JaxDraws(Draws):
         return torch.tensor(np.asarray(j_select_batch(k, n, self.cfg.train_minibatch_size)))
 
     def init_params(self, count):
-        p = jvnet.init_params(self.k_init[count], self.cfg.n_states)
+        p = _jax_init(self.cfg, self.name)(self.k_init[count])
         return params_from_jax({k: np.asarray(v) for k, v in p.items()}, device="cpu")
+
+
+def _jax_init(jcfg, name):
+    """The JAX init of the detector's family: key -> params."""
+    if "lstm" in name:
+        return jlstm.init_params
+    return lambda k: jvnet.init_params(k, jcfg.n_states)
 
 
 def _run_both(name, snr=10.0, init_buffer=False, meta_init=False, **kw):
@@ -88,8 +98,8 @@ def _run_both(name, snr=10.0, init_buffer=False, meta_init=False, **kw):
     if jspec.trainable:
         loss_fn = j_make_loss_fn(jspec.score, jspec.label_kind, jcfg.memory_length,
                                  jspec.subsample_loss, jcfg.train_minibatch_size)
-        init_fn = lambda k: jvnet.init_params(k, jcfg.n_states)
-        params = jvnet.init_params(jax.random.PRNGKey(1), jcfg.n_states)
+        init_fn = _jax_init(jcfg, name)
+        params = init_fn(jax.random.PRNGKey(1))
     extra, t_extra = {}, {}
     if init_buffer:
         # train-channel words labelled with their re-encoded bits, as the
@@ -100,7 +110,7 @@ def _run_both(name, snr=10.0, init_buffer=False, meta_init=False, **kw):
         t_extra = dict(init_buffer_rx=torch.tensor(np.asarray(brx[:6])),
                        init_buffer_tx=torch.tensor(np.asarray(btx)))
     if meta_init:
-        sentinel = jvnet.init_params(jax.random.PRNGKey(9), jcfg.n_states)
+        sentinel = _jax_init(jcfg, name)(jax.random.PRNGKey(9))
         extra["meta_init_params"] = sentinel
         t_extra["meta_init_params"] = params_from_jax(
             {k: np.asarray(v) for k, v in sentinel.items()}, device="cpu")
@@ -110,7 +120,7 @@ def _run_both(name, snr=10.0, init_buffer=False, meta_init=False, **kw):
     cfg = Config(**kw)
     tparams = None if params is None else params_from_jax(
         {k: np.asarray(v) for k, v in params.items()}, device="cpu")
-    draws = JaxDraws(cfg, key, tx.shape[0], spec.trainable and cfg.online_meta,
+    draws = JaxDraws(cfg, name, key, tx.shape[0], spec.trainable and cfg.online_meta,
                      spec.trainable and cfg.self_supervised)
     got = run_online(cfg, spec, tparams, torch.tensor(np.asarray(tx)),
                      torch.tensor(np.asarray(rx)), torch.tensor(np.asarray(h)), draws, **t_extra)
@@ -178,6 +188,25 @@ def test_meta_vnet_engine_under_bf16_matches_jax(monkeypatch):
         np.testing.assert_allclose(got_p[k], np.asarray(v), atol=5e-4, rtol=0, err_msg=k)
 
 
+@pytest.mark.parametrize("name,mode", [
+    ("lstm", dict(ser_thresh=0.3)),
+    ("lstm", dict(self_supervised=True, ser_thresh=0.3)),
+    ("meta_lstm", dict(self_supervised=True, online_meta=True, ser_thresh=1.0,
+                       buffer_capacity=32))])
+def test_lstm_engine_matches_jax(name, mode):
+    """The LSTM family: detection through the fused forward, the online
+    mode's autograd steps on the subsampled bit loss with the JAX draws,
+    and the meta mode's second-order MAML through the unrolled forward and
+    its full-word self-supervised steps. K6 never runs (bit labels)."""
+    want, got, start = _run_both(name, **mode)
+    np.testing.assert_array_equal(got.ser_by_word, np.asarray(want.ser_by_word))
+    assert got.n_buffer == int(want.n_buffer) > 0
+    _assert_params_close(want.params, got.params)
+    moved = not np.array_equal(params_to_numpy(got.params)["w_hh1"],
+                               params_to_numpy(start)["w_hh1"])
+    assert moved == bool(mode.get("self_supervised"))
+
+
 def test_first_order_meta_without_self_supervision_matches_jax():
     want, got, _ = _run_both("meta_vnet", online_meta=True, MAML=False, ser_thresh=1.0)
     np.testing.assert_array_equal(got.ser_by_word, np.asarray(want.ser_by_word))
@@ -216,7 +245,9 @@ def test_by_word_eval_needs_ecc(tmp_path):
 
 @pytest.mark.parametrize("name,mode", [
     ("va", {}), ("vnet", {}), ("vnet", dict(self_supervised=True)),
-    ("meta_vnet", dict(self_supervised=True, online_meta=True))])
+    ("meta_vnet", dict(self_supervised=True, online_meta=True)),
+    ("lstm", {}), ("lstm", dict(self_supervised=True)),
+    ("meta_lstm", dict(self_supervised=True, online_meta=True))])
 def test_by_word_evaluate_trains_on_miss_then_adapts(tmp_path, name, mode):
     """Trainer.evaluate() in by-word mode: train-on-miss writes the val
     SNR's checkpoint, then the engine runs every block."""

@@ -15,15 +15,19 @@ import torch
 from metaviterbinet_tpu.data import dataset as jdataset
 from metaviterbinet_tpu.detectors import DETECTORS as JDETECTORS
 from metaviterbinet_tpu.ecc.rs import rs_decode_bits_host
+from metaviterbinet_tpu.models import lstm as jlstm
 from metaviterbinet_tpu.models import viterbinet as jvnet
 from metaviterbinet_tpu.ops.channel import estimate_channel_batch as j_taps
 from metaviterbinet_tpu.ops.metrics import error_rates as j_error_rates
 from metaviterbinet_tpu_torch import Config
 from metaviterbinet_tpu_torch.data import dataset as tdataset
 from metaviterbinet_tpu_torch.evaluation.trainer import Trainer
+from metaviterbinet_tpu_torch.models import lstm as tlstm
 from metaviterbinet_tpu_torch.models import viterbinet as tvnet
 from metaviterbinet_tpu_torch.paths import RESOURCES_DIR, ROOT_DIR
 from metaviterbinet_tpu_torch.weights import adam_state_from_jax, params_from_jax
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 
 PROTOCOL = dict(n_words=300, block_length=120, memory_length=4, use_ecc=True, n_symbols=2,
                 channel_coefficients="time_decay", fading=True, fading_taps_type=1)
@@ -131,6 +135,23 @@ def test_slice_vnet_coded_ber_matches_jax(protocol_batch):
     assert abs(got - want) <= 2e-3, (got, want)
 
 
+def test_slice_lstm_coded_ber_matches_jax(protocol_batch):
+    """The LSTM's aggregated eval tail on the first frame of the protocol
+    batch (25 words x 136 symbols): JAX's detect -> RS decode -> coded BER
+    against the port's, from the same params. The two forwards are 5e-8
+    apart, so the detections and the BER are equal."""
+    tx, rx, h = (a[:25] for a in protocol_batch)
+    cfg = Config(val_frames=1)
+    params = jlstm.init_params(jax.random.PRNGKey(3))
+    want_bits = np.asarray(JDETECTORS["lstm"].detect(params, jnp.asarray(rx), None))
+    want = _jax_eval_tail(want_bits, tx, cfg.data_indices("val"))
+    model = params_from_jax({k: np.asarray(v) for k, v in params.items()}, device="cpu")
+    t = Trainer(cfg, "lstm", device="cpu", params=model, verbose=False)
+    np.testing.assert_array_equal(t.spec.detect(model, torch.tensor(rx), None).numpy(), want_bits)
+    got = float(t.eval_tail(model, torch.tensor(tx), torch.tensor(rx), torch.tensor(h)))
+    assert got == want, (got, want)
+
+
 def test_va_coded_ber_in_reference_band():
     """The port alone, with its own generators: VA coded BER at 10 dB within
     0.006 of the recorded reference (as tests/test_parity_anchor.py)."""
@@ -160,8 +181,8 @@ def test_trainable_detector_needs_params_from_its_caller(tmp_path):
                     verbose=False)
     fixed.evaluate()
     assert fixed.params is model and not (tmp_path / "x").exists()
-    with pytest.raises(NotImplementedError, match="lstm"):
-        Trainer(cfg, "lstm", device="cpu")
+    with pytest.raises(ValueError, match="unknown detector 'multistream_lstm'"):
+        Trainer(cfg, "multistream_lstm", device="cpu")
 
 
 def test_entry_points_default_to_the_card():
@@ -187,6 +208,19 @@ def test_entry_points_default_to_the_card():
         adam_state_from_jax(np_params, np_params, 0)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Trainer(cfg.replace(eval_mode="by_word"), "meta_vnet")
+    # the LSTM family
+    for name in ("lstm", "meta_lstm"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            Trainer(cfg, name)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tlstm.WindowedLSTM()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tlstm.init_params(torch.Generator())
+    lstm_params = {k: np.asarray(v) for k, v in jlstm.init_params(jax.random.PRNGKey(0)).items()}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        params_from_jax(lstm_params)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tlstm.from_params(lstm_params)
 
 
 def test_port_imports_nothing_of_jax():

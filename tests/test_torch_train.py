@@ -21,6 +21,7 @@ import torch
 import yaml
 
 from metaviterbinet_tpu import config as jconfig
+from metaviterbinet_tpu.models import lstm as jlstm
 from metaviterbinet_tpu.models import viterbinet as jvnet
 from metaviterbinet_tpu.train.losses import make_loss_fn as j_make_loss_fn
 from metaviterbinet_tpu.train.losses import select_batch as j_select_batch
@@ -30,6 +31,7 @@ from metaviterbinet_tpu.train.meta import sorted_unique_mask
 from metaviterbinet_tpu.train.optim import make_optimizer
 from metaviterbinet_tpu_torch import Config
 from metaviterbinet_tpu_torch.evaluation.trainer import Trainer
+from metaviterbinet_tpu_torch.models import lstm as tlstm
 from metaviterbinet_tpu_torch.models import viterbinet as tvnet
 from metaviterbinet_tpu_torch.train.checkpoint import (
     load_checkpoint, save_config_provenance, save_params)
@@ -38,6 +40,8 @@ from metaviterbinet_tpu_torch.train.loop import word_sweep
 from metaviterbinet_tpu_torch.train.meta import make_maml_step, sorted_unique
 from metaviterbinet_tpu_torch.train.optim import Optimizer, OptState
 from metaviterbinet_tpu_torch.weights import adam_state_from_jax, params_from_jax, params_to_numpy
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 
 S, L = 16, 4
 
@@ -138,6 +142,34 @@ def test_loss_and_gradients_match_jax(loss_type, subsample):
     _close(dict(zip(tp, grads)), want_g, atol=1e-7, rtol=1e-5)
 
 
+def _lstm_params(seed):
+    jp = jlstm.init_params(jax.random.PRNGKey(seed))
+    model = params_from_jax({k: np.asarray(v) for k, v in jp.items()}, device="cpu")
+    return jp, tlstm.param_dict(model)
+
+
+@pytest.mark.parametrize("score,subsample,loss_type", [
+    ("logits", True, "CrossEntropy"), ("logits", False, "CrossEntropy"),
+    ("logits", True, "BCE"), ("logits", False, "MSE"),
+    ("logits_unrolled", True, "CrossEntropy"), ("logits_unrolled", False, "CrossEntropy")])
+def test_lstm_loss_and_gradients_match_jax(score, subsample, loss_type):
+    """The LSTM's bit labels (label_kind 'bits'), 40 labels against 48
+    symbols, through either forward: loss and gradients within rtol 1e-4,
+    atol 1e-7 of JAX, the contract JAX holds its two scan structures to
+    (tests/test_models.py:47-70)."""
+    jp, tp = _lstm_params(2)
+    rx, tx = _words(1, 48, 3, bits=40)
+    key = jax.random.PRNGKey(4)
+    jloss = j_make_loss_fn(jlstm.score, "bits", L, subsample, 16, loss_type=loss_type)
+    want, want_g = jax.value_and_grad(jloss)(jp, jnp.asarray(rx), jnp.asarray(tx), key)
+    idx = torch.tensor(np.asarray(j_select_batch(key, 40, 16))) if subsample else None
+    loss = make_loss_fn(getattr(tlstm, score), "bits", L, subsample, loss_type)(
+        tp, torch.tensor(rx), torch.tensor(tx), idx)
+    grads = torch.autograd.grad(loss, list(tp.values()))
+    assert abs(loss.detach().item() - float(want)) <= 1e-6 * max(1.0, abs(float(want)))
+    _close(dict(zip(tp, grads)), want_g, atol=1e-7, rtol=1e-4)
+
+
 def test_subsampled_loss_needs_indices():
     _, tp = _tparams(_jparams())
     rx, tx = _words(1, 24, 0)
@@ -189,6 +221,60 @@ def test_maml_step_matches_jax(second_order):
         got_l = tstep(tp, tstate, r[q - 1:q], t[q - 1:q], r[q:q + 1], t[q:q + 1])
         assert abs(float(got_l) - float(wl)) < 1e-5
     _close(tp, want, atol=1e-6)
+
+
+def test_lstm_word_sweep_matches_jax():
+    """The LSTM's word sweep: 6 words, one Adam step each on the
+    subsampled bit loss through the fused forward, with the JAX draws.
+    Params within 2e-5, 2% of one Adam step at lr 1e-3: Adam divides each
+    gradient by its own running RMS, so an element whose gradient sums to
+    near zero takes a step set by the rounding of that sum (measured on
+    seeds 5-8: one element of b_hh1 1.4e-5 apart, every other one within
+    8e-6)."""
+    jp, tp = _lstm_params(5)
+    rx, tx = _words(6, 32, 6, bits=24)
+    jloss = j_make_loss_fn(jlstm.score, "bits", L, True, 8)
+    opt = make_optimizer("Adam", 1e-3)
+    key = jax.random.PRNGKey(7)
+    want, _, want_loss = make_word_sweep(jloss, opt)(jp, opt.init(jp), jnp.asarray(rx),
+                                                     jnp.asarray(tx), key)
+    select = [torch.tensor(np.asarray(j_select_batch(k, 24, 8)))
+              for k in jax.random.split(key, 6)]
+    topt = Optimizer("Adam", 1e-3)
+    state = topt.init(tp)
+    loss = word_sweep(make_loss_fn(tlstm.logits, "bits", L, True), topt, tp, state,
+                      torch.tensor(rx), torch.tensor(tx), select)
+    assert state.count == 6
+    assert abs(float(loss) - float(want_loss)) < 1e-4
+    _close(tp, want, atol=2e-5)
+
+
+@pytest.mark.parametrize("second_order", [True, False])
+def test_lstm_maml_step_matches_jax(second_order):
+    """meta_lstm's MAML step through the unrolled forward (the spec's
+    meta_score), support and query of one 40-symbol coded word each, two
+    steps from a carried Adam state: params within PARAMS_ATOL (1e-5) of
+    JAX's make_maml_step, whose second order is jax.grad through jax.grad
+    of the split scan."""
+    from metaviterbinet_tpu_torch.detectors import DETECTORS
+    jp, tp = _lstm_params(8)
+    rx, tx = _words(3, 40, 9)
+    jloss = j_make_loss_fn(jlstm.score, "bits", L, False, 8)
+    opt = make_optimizer("Adam", 1e-3)
+    jstep = j_make_maml_step(jloss, opt, 0.1, second_order)
+    state = opt.init(jp)
+    want = jp
+    topt = Optimizer("Adam", 1e-3)
+    tstate = topt.init(tp)
+    tstep = make_maml_step(make_loss_fn(DETECTORS["meta_lstm"].meta_score, "bits", L, False),
+                           topt, 0.1, second_order)
+    r, t = torch.tensor(rx), torch.tensor(tx)
+    for q in (1, 2):
+        want, state, wl = jstep(want, state, jnp.asarray(rx[q - 1:q]), jnp.asarray(tx[q - 1:q]),
+                                jnp.asarray(rx[q:q + 1]), jnp.asarray(tx[q:q + 1]))
+        got_l = tstep(tp, tstate, r[q - 1:q], t[q - 1:q], r[q:q + 1], t[q:q + 1])
+        assert abs(float(got_l) - float(wl)) < 1e-5
+    _close(tp, want, atol=1e-5)
 
 
 def test_maml_orders_differ():
@@ -259,21 +345,28 @@ TINY = dict(val_block_length=24, train_block_length=24, n_symbols=1, val_frames=
             train_minibatch_size=8, meta_train_iterations=2, meta_j_num=2)
 
 
-@pytest.mark.parametrize("name", ["vnet", "meta_vnet"])
+@pytest.mark.parametrize("name", ["vnet", "meta_vnet", "lstm", "meta_lstm"])
 def test_train_on_miss_writes_a_checkpoint(tmp_path, name):
+    """Train-on-miss writes the family's checkpoint (its JAX param names),
+    which loads back as a model of that family."""
     cfg = Config(**TINY)
     t = Trainer(cfg, name, device="cpu", weights_dir=str(tmp_path), verbose=False)
     model = t.load_weights(10.0, cfg.gamma)  # a miss: trains first
+    family = tlstm if "lstm" in name else tvnet
+    assert isinstance(model, tlstm.WindowedLSTM if "lstm" in name else tvnet.ViterbiNet)
     ck = load_checkpoint(str(tmp_path), 10.0, cfg.gamma, "cpu")
     assert ck is not None and isinstance(ck["opt_state"], OptState) and ck["opt_state"].count > 0
-    np.testing.assert_array_equal(params_to_numpy(model)["w2"], ck["params"]["w2"].numpy())
+    assert sorted(ck["params"]) == sorted(family.PARAM_NAMES)
+    for k, v in params_to_numpy(model).items():
+        np.testing.assert_array_equal(v, ck["params"][k].numpy(), err_msg=k)
     assert os.path.isfile(tmp_path / "config.yaml")
     # a second trainer loads it without training
     t2 = Trainer(cfg, name, device="cpu", weights_dir=str(tmp_path), verbose=False)
     mtime = os.path.getmtime(tmp_path / "snr_10.0_gamma_0.2.pt")
     again = t2.load_weights(10.0, cfg.gamma)
     assert os.path.getmtime(tmp_path / "snr_10.0_gamma_0.2.pt") == mtime
-    np.testing.assert_array_equal(params_to_numpy(again)["w2"], ck["params"]["w2"].numpy())
+    for k, v in params_to_numpy(again).items():
+        np.testing.assert_array_equal(v, ck["params"][k].numpy(), err_msg=k)
 
 
 def test_vnet_training_pulls_below_chance(tmp_path):
