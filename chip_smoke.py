@@ -42,16 +42,18 @@ Phases, each of which fails the run on error:
               weights directory so that the checkpoint is trained on the
               miss: meta_vnet in meta mode (meta_train, then MAML every 5
               blocks and K6 on every gated block), vnet in joint mode
-              (train, then detection only) and va in joint mode (K2 per
-              block, nothing trained), each against its recorded
-              reference band; launch counts, buffer fill, seconds of
+              (train, then detection only), vnet in online mode (the joint
+              cell's checkpoint, then 200 eager self-supervised steps per
+              gated block on a subsampled loss, so no K6) and va in joint
+              mode (K2 per block, nothing trained), each against its
+              recorded reference band; launch counts, buffer fill, seconds of
               train-on-miss, of the 300 blocks and of their parts (CUDA
               events), and the device's idle share (torch.profiler, a
               second run over PROFILED_BLOCKS blocks); then the first 25
               meta-mode blocks once on the card and once on the CPU;
   5b. lstm    the LSTM family (2 x 256 LSTM, window 4), which has no kernel,
               in two processes of its own started after phase 4 and run
-              beside phases 5-7 (see start_phase_lstm); no path of it may
+              beside phases 5-7 (see start_beside); no path of it may
               launch one of the five kernels. In one process: the
               aggregated point at 10 dB with seeded random params (cuDNN),
               its logits and eval tail on the card against the CPU, and
@@ -66,12 +68,22 @@ Phases, each of which fails the run on error:
               the first meta event (second-order MAML steps), on the card
               and on the CPU, with the seconds per step and an estimate of a
               300-block run. Their output is printed after phase 7;
+  5c. sweep   the experiment harness (plotters/experiments.py) at the
+              protocol's full width, in a third process of its own beside
+              phases 5-7 (see start_beside), printed after phase 7:
+              build_curve over sweep_config(8 dB, block 120, RS nsym=2,
+              COST2100 test channel) for four of the seven curves, each
+              against its reference band, with its launch counts, seconds
+              and idle share, and a fifth call read from the curve cache
+              with no launch (see phase_sweep for the depth cut);
   6. cli      in the vnet weights directory of phase 5: `evaluate` of the
               trained checkpoint, aggregated through K4 (no training), in
               process, against the vnet joint band and against the same
-              command unchunked; and `python -m metaviterbinet_tpu_torch
+              command unchunked; `python -m metaviterbinet_tpu_torch
               evaluate --detector va` in a subprocess, against the same eval
-              in process;
+              in process; and the same in a subprocess with `--config` of
+              the vnet directory's config.yaml (the flat reader, with no
+              `yaml` on the card's machine), against the eval in process;
   7. bf16     Config.dtype='bfloat16': the bf16 logits and the engine detect
               on the card against the CPU, one bf16 word sweep, and no K6;
               the LSTM's bf16 logits on the card against the CPU;
@@ -109,7 +121,7 @@ import warnings
 import numpy as np
 import torch
 
-from metaviterbinet_tpu_torch import Config, cli
+from metaviterbinet_tpu_torch import Config, cli, load_config
 from metaviterbinet_tpu_torch.data.dataset import ChannelDataset, generate_words
 from metaviterbinet_tpu_torch.ecc.rs import rs_encode_bits
 from metaviterbinet_tpu_torch.evaluation.trainer import Trainer
@@ -118,6 +130,8 @@ from metaviterbinet_tpu_torch.models import lstm, va, viterbinet
 from metaviterbinet_tpu_torch.online.engine import Draws, run_online, uses_fused_adaptation
 from metaviterbinet_tpu_torch.ops.trellis import calculate_states
 from metaviterbinet_tpu_torch.paths import RESOURCES_DIR, ROOT_DIR
+from metaviterbinet_tpu_torch.plotters import cache, experiments
+from metaviterbinet_tpu_torch.train.checkpoint import ckpt_path
 from metaviterbinet_tpu_torch.train.losses import select_batch
 from metaviterbinet_tpu_torch.train.loop import word_sweep
 from metaviterbinet_tpu_torch.train.optim import ADAM_B1, ADAM_B2, ADAM_EPS, Optimizer
@@ -137,14 +151,27 @@ VA_BAND = (0.014036, 0.006)  # resources/reference_baselines.json va_full_csi co
 # mean of the reference's two seeds, with tests/test_parity_anchor.py's band
 META_VNET_BAND = (0.028588, 0.012)
 VNET_JOINT_BAND = (0.031814, 0.012)
+VNET_ONLINE_BAND = (0.034954, 0.012)
 # va_joint: the VA trains nothing, so only the binomial noise of the 288
 # data blocks' bits is in it; the VA's band of VA_BAND
 VA_JOINT_BAND = (0.014149, 0.006)
 # blocks of the by-word runs under torch.profiler: a whole run where it is
 # short, the first blocks where the profiler's record of millions of eager
-# launches would take minutes (meta_vnet) or the host's memory (lstm online)
-PROFILED_BLOCKS = {"meta_vnet": 50, "vnet": 300, "va": 300, "lstm joint": 300,
-                   "lstm online": 5}
+# launches would take minutes (meta_vnet, the online modes' self-supervised
+# steps) or the host's memory (lstm online); the sweep's cells by curve
+PROFILED_BLOCKS = {"meta_vnet": 50, "vnet": 300, "vnet online": 25, "va": 300,
+                   "lstm joint": 300, "lstm online": 5,
+                   "Viterbi - Full CSI": 300, "Joint ViterbiNet": 300, "ViterbiNet": 25,
+                   "OnlineMetaViterbiNet": 25}
+# the sweep phase: sweep_config at SWEEP_SNR on the COST2100 channel, four of
+# the seven curves, each held to the reference's mean at 8 dB of the parity
+# matrix cell it names (resources/reference_baselines.json) with
+# tests/test_parity_anchor.py's band
+SWEEP_SNR = 8.0
+SWEEP_CURVES = {"Viterbi - Full CSI": ("va_joint_cost2100", 0.005),
+                "Joint ViterbiNet": ("vnet_joint_cost2100", 0.012),
+                "ViterbiNet": ("vnet_online_cost2100", 0.012),
+                "OnlineMetaViterbiNet": ("meta_vnet_meta_cost2100", 0.012)}
 # the LSTM family's cells, the same source and band
 LSTM_JOINT_BAND = (0.030295, 0.012)
 LSTM_ONLINE_BAND = (0.054008, 0.012)
@@ -158,10 +185,10 @@ LSTM_MARGIN = 1e-4
 # meta events of a 300-block meta run (blocks 5, 10, .., 295) and the most
 # second-order MAML steps one can take (meta_train_iterations x meta_j_num)
 META_EVENTS, MAX_STEPS_PER_EVENT = 59, 200
-# torch's CPU threads while phase 5b's two processes run beside phases 5-7:
-# two for each of them and four for the main process, on the 8 cores of the
-# card's machine (more threads than cores slow every process many times)
-CHILD_CPU_THREADS, MAIN_CPU_THREADS_BESIDE_CHILDREN = 2, 4
+# torch's CPU threads while the three processes of phases 5b and 5c run
+# beside phases 5-7: two for each of the four processes, on the 8 cores of
+# the card's machine (more threads than cores slow every process many times)
+CHILD_CPU_THREADS, MAIN_CPU_THREADS_BESIDE_CHILDREN = 2, 2
 WIDE_W, PROTO_W, T_PROTO = 65536, 300, 136
 K6_ITERS = 200  # Config.self_supervised_iterations, the protocol's
 # K6 against its plain version: the JAX kernel's contract (5e-6 after 40
@@ -837,13 +864,20 @@ def phase_slice(model: viterbinet.ViterbiNet, trained: viterbinet.ViterbiNet) ->
             "busy": busy}
 
 
-def phase_anchors() -> dict:
-    """Two recorded anchors of the reference (tests/test_parity_anchor.py):
-    uncoded full-CSI VA at 10 dB, and VA on the COST2100 channel at 8 dB."""
+def reference_baselines() -> tuple[dict, dict]:
+    """resources/reference_baselines.json and its parity matrix cells (r4's
+    added to r3's, as tests/test_parity_anchor.py merges them)."""
     with open(os.path.join(RESOURCES_DIR, "reference_baselines.json")) as f:
         base = json.load(f)
     cells = {**base.get("r3_parity_matrix", {}).get("cells", {}),
              **base.get("r4_parity_matrix", {}).get("cells", {})}
+    return base, cells
+
+
+def phase_anchors() -> dict:
+    """Two recorded anchors of the reference (tests/test_parity_anchor.py):
+    uncoded full-CSI VA at 10 dB, and VA on the COST2100 channel at 8 dB."""
+    base, cells = reference_baselines()
     out = {}
     for name, ref, tol, cfg, snr in (
             ("uncoded VA 10 dB", base["va_full_csi"]["uncoded"]["points"]["10.0"], UNCODED_VA_TOL,
@@ -877,6 +911,7 @@ def run_by_word(name: str, mode: str, weights_dir: str, band: tuple) -> dict:
     di = cfg.data_indices("val")
     trainer = Trainer(cfg, name, verbose=False)
     trainable = trainer.spec.trainable
+    miss = trainable and not os.path.isfile(ckpt_path(weights_dir, 10.0, cfg.gamma))
     # the user path is trainer.evaluate(), whose first step is this load;
     # on the miss it trains, so its time and launches are read apart (the
     # VA loads nothing)
@@ -921,7 +956,8 @@ def run_by_word(name: str, mode: str, weights_dir: str, band: tuple) -> dict:
     elif trainer.spec.model is viterbinet:
         want["viterbi_decode_kernel"] = cfg.n_words("val")
         want["online_adapt_viterbinet"] = result.n_gated if mode == "meta" else 0
-        want_train["fused_viterbinet_detect"] = cfg.train_minibatch_num  # one eval per minibatch
+        if miss:  # one eval per training minibatch
+            want_train["fused_viterbinet_detect"] = cfg.train_minibatch_num
         if mode == "meta" and result.n_gated == 0:
             fail(f"{name} {mode}: no block was gated, so K6 never ran")
     if launches != want:
@@ -934,15 +970,16 @@ def run_by_word(name: str, mode: str, weights_dir: str, band: tuple) -> dict:
             "n_gated": result.n_gated}
 
 
-def profiled_blocks(cell: str, name: str, cfg: Config) -> dict:
+def profiled_blocks(cell: str, name: str, cfg: Config, weights_dir: str | None = None) -> dict:
     """The device's busy time and idle share over the first
     PROFILED_BLOCKS[cell] blocks of a by-word run of detector `name`, under
-    torch.profiler: a fresh trainer on the run's checkpoint, so the first
-    val batch of its stream, and its own draws."""
+    torch.profiler: a fresh trainer on the run's checkpoint (in weights_dir,
+    else cfg's), so the first val batch of its stream, and its own draws."""
     n = PROFILED_BLOCKS[cell]
-    trainer = Trainer(cfg, name, verbose=False)
-    params = trainer.load_weights(10.0, cfg.gamma) if trainer.spec.trainable else None
-    tx, rx = trainer.val_dataset.get(10.0, cfg.gamma)
+    snr = float(cfg.snr_range("val")[0])
+    trainer = Trainer(cfg, name, weights_dir=weights_dir, verbose=False)
+    params = trainer.load_weights(snr, cfg.gamma) if trainer.spec.trainable else None
+    tx, rx = trainer.val_dataset.get(snr, cfg.gamma)
     h = trainer.decoder_csi(tx.shape[0])
     busy = device_busy(lambda: run_online(cfg, trainer.spec, params, tx[:n], rx[:n], h[:n],
                                           trainer.draws))
@@ -954,12 +991,15 @@ def phase_online(weights_dir: str) -> dict:
     out = {}
     meta = run_by_word("meta_vnet", "meta", f"{weights_dir}/meta_vnet", META_VNET_BAND)
     joint = run_by_word("vnet", "joint", f"{weights_dir}/vnet", VNET_JOINT_BAND)
+    # the joint cell's checkpoint, adapted on by eager self-supervised steps
+    vnet_online = run_by_word("vnet", "online", f"{weights_dir}/vnet", VNET_ONLINE_BAND)
     va_joint = run_by_word("va", "joint", f"{weights_dir}/va", VA_JOINT_BAND)
 
     # the device's idle share: a second by-word run of each under the
     # profiler, over PROFILED_BLOCKS of its blocks
-    for name, run in (("meta_vnet", meta), ("vnet", joint), ("va", va_joint)):
-        run["busy"] = profiled_blocks(name, name, run["cfg"])
+    for cell, name, run in (("meta_vnet", "meta_vnet", meta), ("vnet", "vnet", joint),
+                            ("vnet online", "vnet", vnet_online), ("va", "va", va_joint)):
+        run["busy"] = profiled_blocks(cell, name, run["cfg"])
 
     # the first 25 meta-mode blocks on the card and through the CPU plain
     # path, from the same params, blocks and draws
@@ -987,10 +1027,114 @@ def phase_online(weights_dir: str) -> dict:
           f"CPU {sers['cpu'].tolist()}")
     if block_diff > CARD_CPU_BLOCK_TOL or mean_diff > CARD_CPU_MEAN_TOL:
         fail("meta_vnet: the card and the CPU disagree on the first blocks")
-    for name, run in (("meta_vnet_meta", meta), ("vnet_joint", joint), ("va_joint", va_joint)):
+    for name, run in (("meta_vnet_meta", meta), ("vnet_joint", joint),
+                      ("vnet_online", vnet_online), ("va_joint", va_joint)):
         out[name] = {k: v for k, v in run.items() if k not in ("cfg", "trainer", "sers")}
     out["card_vs_cpu"] = {"blocks": n, "max_block_ser_diff": block_diff,
                           "mean_data_ser_diff": mean_diff}
+    return out
+
+
+@contextlib.contextmanager
+def harness_dirs(root: str):
+    """The experiment harness's weights and curve-cache directories under
+    `root` (plotters/experiments.py's WEIGHTS_DIR, plotters/cache.py's
+    PLOTS_DIR) for the duration."""
+    saved = experiments.WEIGHTS_DIR, cache.PLOTS_DIR
+    experiments.WEIGHTS_DIR, cache.PLOTS_DIR = f"{root}/weights", f"{root}/plots"
+    try:
+        yield
+    finally:
+        experiments.WEIGHTS_DIR, cache.PLOTS_DIR = saved
+
+
+def phase_sweep(root: str, card: str) -> dict:
+    """The experiment harness on the card: experiments.build_curve, the
+    per-curve path of run_sweep with its curve cache, over
+    sweep_config(SWEEP_SNR, 120, 2, "cost2100") (300 blocks of 120 info bits
+    + RS nsym=2 on the COST2100 test channel, type-2 fading, train-on-miss
+    on the time-decay train channel, weights_init=last_frame), in temporary
+    weights and cache directories. Each curve's mean coded BER over the 288
+    data blocks is held to its band (SWEEP_CURVES), beside the JAX package's
+    value of the curve at that SNR (resources/sweep_cost2100.json: the mean
+    over all 300 blocks). Then one curve again without run_over: the array
+    of its pickle, with no kernel launched.
+
+    Depth cut: one SNR of the six and four curves of the seven. The LSTM
+    family's three curves are not run here: phase 5b runs lstm joint and
+    lstm online at 10 dB, and a full meta_lstm run is estimated at 1.9-2.7 h
+    on the card (PERF.md section 7). No figure is rendered (the card's
+    machine has no matplotlib); tests/test_torch_plotters.py renders the
+    curves on the CPU."""
+    _, cells = reference_baselines()
+    with open(os.path.join(RESOURCES_DIR, "sweep_cost2100.json")) as f:
+        jax_sweep = json.load(f)
+    jax_at = jax_sweep["snrs_db"].index(SWEEP_SNR)
+    cfg = experiments.sweep_config(SWEEP_SNR, 120, 2, "cost2100")
+    di = cfg.data_indices("val")
+    specs = {c.method_name: c for c in experiments.CURVES}
+    out = {}
+    with harness_dirs(root):
+        for name, (cell, tol) in SWEEP_CURVES.items():
+            spec = specs[name]
+            ref = float(np.mean(cells[cell]["points"][str(SWEEP_SNR)]["ref"]))
+            zero_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ser = experiments.build_curve(spec, cfg, run_over=True, verbose=False)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = read_launches()
+            mean_ber = float(np.mean(ser[di]))
+            jax_ber = jax_sweep["mean_coded_ber"][name][jax_at]
+            print(f"sweep {name} ({spec.detector}) at {SWEEP_SNR:g} dB on COST2100: mean coded BER "
+                  f"over the {len(di)} data blocks {mean_ber:.6f} (reference {ref:.6f} +- {tol}, "
+                  f"{cell}); over all {len(ser)} blocks {float(np.mean(ser)):.6f} (the JAX "
+                  f"package's curve: {jax_ber}); {seconds:.3f} s; launches {launches} [{card}]")
+            if ser.shape != (cfg.n_words("val"),) or not np.all((ser >= 0) & (ser <= 1)):
+                fail(f"sweep {name}: the curve is not {cfg.n_words('val')} SERs in [0, 1]")
+            if abs(mean_ber - ref) > tol:
+                fail(f"sweep {name}: mean data BER {mean_ber} outside {ref} +- {tol}")
+            # K1 once per train-on-miss minibatch (the two ViterbiNet
+            # curves share one checkpoint), K5 or K2 per block, K6 per gated
+            # meta block
+            want = dict.fromkeys(KERNELS, 0)
+            if spec.detector == "va":
+                want["fused_va_detect"] = cfg.n_words("val")
+            else:
+                want["viterbi_decode_kernel"] = cfg.n_words("val")
+                if name != "ViterbiNet":
+                    want["fused_viterbinet_detect"] = cfg.train_minibatch_num
+                if spec.online_meta:
+                    want["online_adapt_viterbinet"] = launches["online_adapt_viterbinet"]
+                    if not 0 < want["online_adapt_viterbinet"] <= cfg.n_words("val"):
+                        fail(f"sweep {name}: K6 launched {launches['online_adapt_viterbinet']} "
+                             "times")
+            if launches != want:
+                fail(f"sweep {name}: launches {launches}, expected {want}")
+            weights_dir = os.path.join(experiments.WEIGHTS_DIR, f"{spec.weights_prefix}_"
+                                       f"{cfg.val_block_length}_{cfg.n_symbols}_channel1")
+            busy = profiled_blocks(name, spec.detector, cfg.replace(
+                self_supervised=spec.self_supervised, online_meta=spec.online_meta), weights_dir)
+            out[name] = {"ser": ser, "mean_data_ber": mean_ber, "reference": ref, "band": tol,
+                         "mean_ber_300": float(np.mean(ser)), "jax_package_ber_300": jax_ber,
+                         "s": seconds, "launches": launches, "busy": busy}
+
+        name = "Joint ViterbiNet"
+        zero_launches()
+        t0 = time.perf_counter()
+        again = experiments.build_curve(specs[name], cfg, verbose=False)
+        cached_s = time.perf_counter() - t0
+        cached_launches = read_launches()
+        n_pickles = len(os.listdir(cache.PLOTS_DIR))
+    same = np.array_equal(again, out[name]["ser"])
+    print(f"sweep {name} again without run_over: from the cache ({n_pickles} pickles) in "
+          f"{cached_s:.3f} s, equal to the computed curve {same}, launches {cached_launches}")
+    if not same or any(cached_launches.values()) or n_pickles != len(SWEEP_CURVES):
+        fail(f"sweep {name}: the cached call differs or launched a kernel: {cached_launches}")
+    for run in out.values():
+        del run["ser"]
+    out["cached"] = {"curve": name, "s": cached_s, "launches": cached_launches}
     return out
 
 
@@ -1035,7 +1179,7 @@ def no_launches(what: str, launches: dict) -> None:
 
 
 def in_child(fn, *args) -> tuple:
-    """fn(*args) in a worker process of phase 5b, on CHILD_CPU_THREADS of
+    """fn(*args) in a worker process of phase 5b or 5c, on CHILD_CPU_THREADS of
     torch's CPU threads: its result, what it printed and its seconds."""
     torch.set_num_threads(CHILD_CPU_THREADS)
     buf = io.StringIO()
@@ -1045,27 +1189,36 @@ def in_child(fn, *args) -> tuple:
     return out, buf.getvalue(), time.perf_counter() - t0
 
 
-def start_phase_lstm(pool: concurrent.futures.Executor, weights_dir: str, card: str) -> list:
-    """Phase 5b, the LSTM family on the card at full width, in two worker
-    processes: the aggregated point and the lstm joint and lstm online cells
-    in one, meta_lstm in the other. No path of it may launch one of the five
-    kernels (each process counts its own launches). Each is a host-bound
-    loop of eager launches on one core that leaves the card idle most of the
-    time; one after another, after phase 5, they took 811 s of a 1028 s run
-    on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 5), and a host at
-    half that speed would take the time limit. So they run beside phases 5-7 and the main process
-    waits for them before phase 8 times the kernels."""
+def start_beside(pool: concurrent.futures.Executor, weights_dir: str, card: str) -> list:
+    """Phases 5b and 5c in three worker processes: the LSTM family on the
+    card at full width (the aggregated point and the lstm joint and lstm
+    online cells in one, meta_lstm in another; no path of it may launch one
+    of the five kernels) and the sweep (phase_sweep) in the third. Each
+    process counts its own launches. Each is a host-bound loop of eager
+    launches on one core that leaves the card idle most of the time; one
+    after another, after phase 5, the LSTM's took 811 s of a 1028 s run on
+    an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 5), and the sweep in
+    the main process took the script to 917 s. So they run beside phases
+    5-7 and the main process waits for them before phase 8 times the
+    kernels."""
     return [pool.submit(in_child, lstm_cells, weights_dir, card),
-            pool.submit(in_child, meta_lstm_cell, f"{weights_dir}/meta_lstm", card)]
+            pool.submit(in_child, meta_lstm_cell, f"{weights_dir}/meta_lstm", card),
+            pool.submit(in_child, phase_sweep, f"{weights_dir}/sweep", card)]
 
 
-def finish_phase_lstm(jobs: list) -> dict:
-    """Wait for phase 5b's processes and print what they printed."""
-    (cells, cells_text, cells_s), (meta, meta_text, meta_s) = (job.result() for job in jobs)
+def finish_beside(jobs: list) -> tuple[dict, dict]:
+    """Wait for the processes of phases 5b and 5c and print what they
+    printed; returns the LSTM family's results and the sweep's."""
+    ((cells, cells_text, cells_s), (meta, meta_text, meta_s),
+     (sweep, sweep_text, sweep_s)) = (job.result() for job in jobs)
     print("lstm (phase 5b, two processes beside phases 5-7):")
     print(cells_text + meta_text, end="")
     print(f"lstm cells process {cells_s:.1f} s, meta_lstm process {meta_s:.1f} s")
-    return dict(cells, meta_lstm=meta, process_seconds={"cells": cells_s, "meta_lstm": meta_s})
+    print("sweep (phase 5c, a process beside phases 5-7):")
+    print(sweep_text, end="")
+    print(f"sweep process {sweep_s:.1f} s")
+    lstm_out = dict(cells, meta_lstm=meta, process_seconds={"cells": cells_s, "meta_lstm": meta_s})
+    return lstm_out, dict(sweep, process_seconds=sweep_s)
 
 
 def lstm_cells(weights_dir: str, card: str) -> dict:
@@ -1136,7 +1289,7 @@ def meta_lstm_cell(weights_dir: str, card: str) -> dict:
     META_LSTM_BLOCKS blocks of the by-word meta run, through its first meta
     event, on the card and on the CPU; the seconds per second-order MAML step and an
     estimate of a 300-block run. Runs in a process of its own (see
-    start_phase_lstm)."""
+    start_beside)."""
     mcfg = online_cfg("meta", weights_dir)
     mtrainer = Trainer(mcfg, "meta_lstm", verbose=False)
     zero_launches()
@@ -1207,7 +1360,8 @@ def run_cli(argv: list) -> dict:
 def phase_cli(vnet_dir: str) -> dict:
     """The port's CLI: the trained vnet checkpoint of the joint by-word run,
     evaluated aggregated through K4 with no training, in process; then the
-    VA from `python -m metaviterbinet_tpu_torch` in a subprocess."""
+    VA from `python -m metaviterbinet_tpu_torch` in a subprocess, once from
+    --set and once from --config of the vnet directory's config.yaml."""
     base = ["evaluate", "--detector", "vnet", "--snr", "10", "--weights-dir", vnet_dir,
             "--set", "fading_taps_type=2", "val_frames=12"]
     zero_launches()
@@ -1231,23 +1385,32 @@ def phase_cli(vnet_dir: str) -> dict:
     if plain["mean_ser"] != ber:
         fail(f"cli: chunked {ber} and unchunked {plain['mean_ser']} differ")
 
-    cmd = [sys.executable, "-m", "metaviterbinet_tpu_torch", "evaluate", "--detector", "va",
-           "--snr", "10", "--set", "val_frames=12"]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT_DIR, env=dict(os.environ, PYTHONPATH=ROOT_DIR),
-                          capture_output=True, text=True, timeout=600)
-    sub_s = time.perf_counter() - t0
-    if proc.returncode != 0:
-        fail(f"{' '.join(cmd[1:])}: exit code {proc.returncode}\n{proc.stderr[-4000:]}")
-    sub = json.loads(proc.stdout.strip().splitlines()[-1])
-    cfg = Config(val_frames=12, val_SNR_start=10.0, val_SNR_end=10.0)
-    in_process = float(Trainer(cfg, "va", verbose=False).evaluate().mean())
-    print(f"python -m metaviterbinet_tpu_torch evaluate --detector va --snr 10 --set "
-          f"val_frames=12: exit 0 in {sub_s:.1f} s, last line {sub}; in process {in_process}")
-    if sub["mean_ser"] != in_process:
-        fail(f"cli subprocess BER {sub['mean_ser']} differs from in process {in_process}")
-    return {"vnet_chunked": chunked, "vnet_unchunked": plain, "launches": chunked_launches,
-            "va_subprocess": sub, "va_in_process": in_process, "subprocess_s": sub_s}
+    # the VA from the CLI in a subprocess, from --set and from --config (the
+    # vnet cells' provenance: the by-word protocol at 10 dB), each against
+    # the same eval in process
+    provenance = os.path.join(vnet_dir, "config.yaml")
+    out = {"vnet_chunked": chunked, "vnet_unchunked": plain, "launches": chunked_launches}
+    for key, args, cfg in (
+            ("va", ["--snr", "10", "--set", "val_frames=12"],
+             Config(val_frames=12, val_SNR_start=10.0, val_SNR_end=10.0)),
+            ("va_config", ["--config", provenance], load_config(provenance))):
+        cmd = [sys.executable, "-m", "metaviterbinet_tpu_torch", "evaluate", "--detector", "va",
+               *args]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT_DIR, env=dict(os.environ, PYTHONPATH=ROOT_DIR),
+                              capture_output=True, text=True, timeout=600)
+        sub_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"{' '.join(cmd[1:])}: exit code {proc.returncode}\n{proc.stderr[-4000:]}")
+        sub = json.loads(proc.stdout.strip().splitlines()[-1])
+        in_process = float(Trainer(cfg, "va", verbose=False).evaluate().mean())
+        print(f"python {' '.join(cmd[1:])}: exit 0 in {sub_s:.1f} s, last line {sub}; in "
+              f"process {in_process}")
+        if sub["mean_ser"] != in_process or sub["eval_mode"] != cfg.eval_mode:
+            fail(f"cli subprocess {sub} differs from in process {in_process} ({cfg.eval_mode})")
+        out.update({f"{key}_subprocess": sub, f"{key}_in_process": in_process,
+                    f"{key}_subprocess_s": sub_s})
+    return out
 
 
 def phase_bf16(model: viterbinet.ViterbiNet) -> dict:
@@ -1418,7 +1581,7 @@ SOURCES = {"fused_va_detect": "metaviterbinet_tpu_torch/kernels/csrc/va_detect.c
            "online_adapt_viterbinet": "metaviterbinet_tpu_torch/kernels/csrc/online_adapt.cu"}
 
 
-def kernel_rows(checks: dict, sl: dict, online: dict, times: dict) -> list:
+def kernel_rows(checks: dict, sl: dict, online: dict, sweep: dict, times: dict) -> list:
     rows = []
     meta_launches = online["meta_vnet_meta"]["launches"]
     for name in ("fused_viterbinet_detect", "fused_va_detect"):
@@ -1498,6 +1661,9 @@ def kernel_rows(checks: dict, sl: dict, online: dict, times: dict) -> list:
         "checked": checks[(name, 1, T_PROTO)]["by_check"],
         "drift": checks[(name, 1, T_PROTO)]["drift"],
     })
+    for row in rows:
+        row["launches_sweep"] = {curve: sweep[curve]["launches"][row["name"]]
+                                 for curve in SWEEP_CURVES}
     return rows
 
 
@@ -1523,23 +1689,23 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     model = viterbinet.init_params(16, gen, device="cuda")
     pool = concurrent.futures.ProcessPoolExecutor(
-        max_workers=2, mp_context=multiprocessing.get_context("spawn"))
+        max_workers=3, mp_context=multiprocessing.get_context("spawn"))
     with tempfile.TemporaryDirectory() as weights_dir, pool:
         trained = trained_vnet(f"{weights_dir}/one_minibatch")
         checks = timed("kernels", phase_kernels, model, trained, gen)
         sl = timed("slice", phase_slice, model, trained)
         anchors = timed("anchors", phase_anchors)
-        lstm_jobs = start_phase_lstm(pool, weights_dir, card)
+        jobs = start_beside(pool, weights_dir, card)
         threads = torch.get_num_threads()
         torch.set_num_threads(MAIN_CPU_THREADS_BESIDE_CHILDREN)
         online = timed("online", phase_online, weights_dir)
         cli_out = timed("cli", phase_cli, f"{weights_dir}/vnet")
         bf16 = timed("bf16", phase_bf16, model)
-        lstm_out = timed("lstm (the wait after phase 7)", finish_phase_lstm, lstm_jobs)
+        lstm_out, sweep = timed("lstm and sweep (the wait after phase 7)", finish_beside, jobs)
         torch.set_num_threads(threads)
     times = timed("width", phase_width, model, gen, card)
 
-    print(json.dumps({"kernels": kernel_rows(checks, sl, online, times), "card": card,
+    print(json.dumps({"kernels": kernel_rows(checks, sl, online, sweep, times), "card": card,
                       "eval_s_per_1000_words": {
                           "va_sweep": sl["va_s_per_1k"], "va_loop": sl["va_loop_s_per_1k"],
                           "vnet": sl["vnet_s_per_1k"], "vnet_chunked": sl["vnet_chunked_s_per_1k"]},
@@ -1548,6 +1714,7 @@ def main() -> int:
                       "vnet_coded_ber_10db": {"random_params": sl["vnet_ber_10db"],
                                               "trained_params": sl["vnet_trained_ber_10db"]},
                       "anchors": anchors, "by_word_10db": online, "lstm": lstm_out,
+                      "sweep_8db_cost2100": sweep,
                       "cli": cli_out, "bf16": bf16, "phase_seconds": seconds}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,12 +1,18 @@
 """Command-line interface of the port (the JAX package's cli.py, for its
-`train` and `evaluate` commands).
+`train`, `evaluate`, `sweep` and `taps` commands).
 
     python -m metaviterbinet_tpu_torch train    --detector vnet --snr 10
     python -m metaviterbinet_tpu_torch evaluate --detector vnet --set eval_time_chunks=4
-    python -m metaviterbinet_tpu_torch evaluate --detector va --device cpu
+    python -m metaviterbinet_tpu_torch evaluate --detector va --config weights/config.yaml
+    python -m metaviterbinet_tpu_torch sweep    --snrs 7 8 9 10 11 12
+    python -m metaviterbinet_tpu_torch taps     --channel cost2100 --fading-type 2
 
-Any Config field can be overridden with --set key=value. Runs on the card
-unless --device cpu is given. `sweep`, `taps` and `bench` are not ported.
+Any Config field can be overridden with --set key=value, over the values of
+a --config file (the port's config.yaml or a provenance written by either
+package). `train`, `evaluate` and `sweep` run on the card unless --device
+cpu is given; `taps` computes the taps on the CPU. `sweep` and `taps` render
+figures with matplotlib and fail before any work where it is missing.
+`bench` is not ported.
 """
 from __future__ import annotations
 
@@ -15,7 +21,7 @@ import ast
 import dataclasses
 import json
 
-from metaviterbinet_tpu_torch.config import Config, load_config
+from metaviterbinet_tpu_torch.config import Config, load_config, read_config_file
 from metaviterbinet_tpu_torch.detectors import DETECTORS
 
 
@@ -48,16 +54,29 @@ def _parse_set_overrides(pairs):
     return out
 
 
+# the fields a sweep sets per point from its --snrs
+_SWEEP_SNR_FIELDS = ("val_SNR_start", "val_SNR_end", "train_SNR_start", "train_SNR_end")
+
+
 def _build_config(args) -> Config:
     overrides = _parse_set_overrides(args.set)
-    if args.snr is not None:
+    if getattr(args, "snr", None) is not None:
         overrides.update(val_SNR_start=args.snr, val_SNR_end=args.snr,
                          train_SNR_start=args.snr, train_SNR_end=args.snr)
     if getattr(args, "eval_mode", None):
         overrides["eval_mode"] = args.eval_mode
-    if args.weights_dir:
+    if getattr(args, "weights_dir", None):
         overrides["weights_dir"] = args.weights_dir
     return load_config(args.config, **overrides)
+
+
+def _sweep_overrides(args) -> dict:
+    """The sweep's Config overrides: the --config file's fields but the SNR
+    ones, then --set."""
+    overrides = {k: v for k, v in read_config_file(args.config).items()
+                 if k not in _SWEEP_SNR_FIELDS}
+    overrides.update(_parse_set_overrides(args.set))
+    return overrides
 
 
 def main(argv=None) -> int:
@@ -68,19 +87,68 @@ def main(argv=None) -> int:
         p.add_argument("--config", default=None, help="yaml config path")
         p.add_argument("--set", nargs="*", metavar="KEY=VALUE",
                        help="override any Config field")
+
+    def add_device(p):
+        p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                       help="run on the card (default) or on the CPU")
+
+    def add_point(p):
+        add_common(p)
+        add_device(p)
         p.add_argument("--snr", type=float, default=None,
                        help="pin train+val SNR to one value")
         p.add_argument("--weights-dir", default=None)
-        p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                       help="run on the card (default) or on the CPU")
         p.add_argument("--detector", choices=sorted(DETECTORS), required=True)
 
-    add_common(sub.add_parser("train", help="offline (meta-)training"))
+    add_point(sub.add_parser("train", help="offline (meta-)training"))
     p_eval = sub.add_parser("evaluate", help="aggregated or by-word evaluation")
-    add_common(p_eval)
+    add_point(p_eval)
     p_eval.add_argument("--eval-mode", choices=["aggregated", "by_word"], default=None)
 
+    p_sweep = sub.add_parser("sweep", help="full SNR sweep over all curves")
+    add_common(p_sweep)
+    add_device(p_sweep)
+    p_sweep.add_argument("--snrs", type=float, nargs="+", default=[7, 8, 9, 10, 11, 12])
+    p_sweep.add_argument("--channel", default="cost2100", choices=["cost2100", "time_decay"])
+    p_sweep.add_argument("--run-over", action="store_true")
+    p_sweep.add_argument("--by-block", action="store_true")
+
+    p_taps = sub.add_parser(
+        "taps", help="plot channel tap trajectories (reference channel_estimation.py:52-70)")
+    add_common(p_taps)
+    p_taps.add_argument("--channel", default="time_decay", choices=["cost2100", "time_decay"])
+    p_taps.add_argument("--fading-type", type=int, default=1, choices=[1, 2])
+    p_taps.add_argument("--blocks", type=int, default=300)
+
     args = parser.parse_args(argv)
+
+    if args.command == "taps":
+        from metaviterbinet_tpu_torch.plotters.figures import plot_tap_trajectories
+        cfg = _build_config(args)
+        path = plot_tap_trajectories(
+            memory_length=cfg.memory_length, gamma=cfg.gamma,
+            channel_coefficients=args.channel,
+            fading_taps_type=args.fading_type, n_blocks=args.blocks,
+            fading=cfg.fading_in_channel,
+        )
+        print(json.dumps({"figure": path}))
+        return 0
+
+    if args.command == "sweep":
+        from metaviterbinet_tpu_torch.plotters.experiments import run_sweep
+        all_curves, fig = run_sweep(
+            snrs=args.snrs, channel_coefficients=args.channel,
+            run_over=args.run_over, plot_by_block_flag=args.by_block,
+            device=args.device, **_sweep_overrides(args),
+        )
+        print(json.dumps({
+            "curves": [
+                {"method": name, "mean_ser": float(sum(ser) / len(ser))}
+                for ser, name, _, _ in all_curves
+            ],
+            "figure": fig,
+        }))
+        return 0
 
     from metaviterbinet_tpu_torch.evaluation.trainer import Trainer
 

@@ -3,7 +3,8 @@
 The same fields, defaults and derived quantities as the JAX package's
 `Config` (parity with the reference's flat yaml namespace, python_code/
 config.yaml:1-57). The port keeps its own copy so that it imports nothing of
-the JAX package. `yaml` is imported only inside `load_config`.
+the JAX package. Config files are read by `parse_flat_yaml`, which needs no
+`yaml` (the card's machine has none).
 
 Fields whose mechanism the port does not have yet raise NotImplementedError
 when set away from their default, rather than being ignored.
@@ -11,7 +12,9 @@ when set away from their default, rather than being ignored.
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
+import re
 from dataclasses import dataclass
 from typing import Optional
 
@@ -152,15 +155,133 @@ class Config:
         return dataclasses.replace(self, **kwargs)
 
 
-def load_config(config_path: Optional[str] = None, **overrides) -> Config:
-    """Build a Config: dataclass defaults, then yaml file, then overrides (highest wins)."""
-    values = {}
-    if config_path is not None and os.path.isfile(config_path):
-        import yaml
+# PyYAML's implicit types of a plain scalar (YAML 1.1, yaml/resolver.py), so
+# that a value reads as yaml.safe_load reads it: "1e-3" has no dot and stays
+# a string there, "1.0e-03" is a float
+_NULL = re.compile(r"^(?:~|null|Null|NULL|)$")
+_BOOL = {w: w.lower() in ("yes", "true", "on")
+         for w in "yes Yes YES no No NO true True TRUE false False FALSE on On ON off Off OFF".split()}
+_INT = re.compile(r"^[-+]?(?:0b[0-1_]+|0[0-7_]+|0|[1-9][0-9_]*|0x[0-9a-fA-F_]+)$")
+_FLOAT = re.compile(r"^(?:[-+]?[0-9][0-9_]*\.[0-9_]*(?:[eE][-+][0-9]+)?|\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?"
+                    r"|[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN))$")
+# the implicit types the reader does not construct: sexagesimal numbers,
+# timestamps, merge keys and the value key
+_UNSUPPORTED = re.compile(r"^(?:[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+(?:\.[0-9_]*)?"
+                          r"|[0-9]{4}-[0-9]{1,2}-[0-9]{1,2}(?:[Tt \t].*)?|<<|=)$")
+_KEY = re.compile(r"^([A-Za-z_][A-Za-z0-9_]*)[ \t]*:(?:[ \t]+(.*))?$")
+_ITEM = re.compile(r"^[ \t]*-(?:[ \t]+(.*))?$")
 
-        with open(config_path) as f:
-            loaded = yaml.safe_load(f) or {}
-        known = {f.name for f in dataclasses.fields(Config)}
-        values.update({k: v for k, v in loaded.items() if k in known})
+
+def _plain(text: str, where: str):
+    """A plain scalar as PyYAML resolves it."""
+    if _NULL.match(text):
+        return None
+    if text in _BOOL:
+        return _BOOL[text]
+    if _UNSUPPORTED.match(text) or ": " in text or text.endswith(":"):
+        raise ValueError(f"{where}: unsupported value {text!r}")
+    if _INT.match(text):
+        digits = text.replace("_", "")
+        sign = -1 if digits[0] == "-" else 1
+        digits = digits.lstrip("+-")
+        base = 2 if digits.startswith("0b") else 16 if digits.startswith("0x") else \
+            8 if len(digits) > 1 and digits[0] == "0" else 10
+        return sign * int(digits[2:] if base in (2, 16) else digits, base)
+    if _FLOAT.match(text):
+        digits = text.replace("_", "").lower()
+        return float(digits.replace(".inf", "inf").replace(".nan", "nan"))
+    return text
+
+
+def _scalar(text: str, where: str):
+    """A value: a double- or single-quoted string or a plain scalar, with an
+    optional trailing comment. Returns (value, the text after it)."""
+    if text[:1] == '"':
+        end = 1
+        while end < len(text) and text[end] != '"':
+            end += 2 if text[end] == "\\" else 1
+        try:
+            value = json.loads(text[:end + 1])
+        except json.JSONDecodeError as e:
+            raise ValueError(f"{where}: bad double-quoted string") from e
+        return value, text[end + 1:]
+    if text[:1] == "'":
+        m = re.match(r"'((?:[^']|'')*)'", text)
+        if m is None:
+            raise ValueError(f"{where}: unterminated single-quoted string")
+        return m.group(1).replace("''", "'"), text[m.end():]
+    if text[:1] and text[0] in "{[]}&*!|>%@`,?":
+        raise ValueError(f"{where}: unsupported YAML ({text!r})")
+    m = re.search(r"[ \t]#", text)
+    plain, rest = (text[:m.start()], text[m.start():]) if m else (text, "")
+    return _plain(plain.strip(), where), rest
+
+
+def _value(text: str, where: str):
+    """A key's value: a scalar or a flow sequence of scalars (as a tuple)."""
+    if text[:1] == "[":
+        close = text.find("]")
+        if close < 0 or "[" in text[1:close]:
+            raise ValueError(f"{where}: unsupported flow sequence")
+        inner, rest = text[1:close].strip(), text[close + 1:]
+        items = [_scalar(item.strip(), where) for item in inner.split(",")] if inner else []
+        if any(tail.strip() for _, tail in items):
+            raise ValueError(f"{where}: unsupported flow sequence")
+        value = tuple(v for v, _ in items)
+    else:
+        value, rest = _scalar(text, where)
+    if rest.strip() and not rest.strip().startswith("#"):
+        raise ValueError(f"{where}: unexpected text after the value ({rest.strip()!r})")
+    return value
+
+
+def parse_flat_yaml(text: str, source: str = "<config>") -> dict:
+    """A flat YAML mapping of scalars, read as yaml.safe_load reads it, with
+    no `yaml`: `key: value` lines with quoted or plain scalars (null, bool,
+    int, float or str by PyYAML's YAML 1.1 rules), comments, and sequences of
+    scalars in flow (`[2, 4]`) or block form (`key:` then `- 2` lines), which
+    are returned as tuples. It reads the port's config.yaml, the port's
+    provenance (`key: <JSON value>` lines) and the JAX package's
+    (`yaml.safe_dump`). Anything else (nested maps, anchors, tags, block
+    scalars, several documents) raises ValueError naming the line."""
+    out: dict = {}
+    seq_key = None  # the key whose value was empty: a block sequence may follow
+    for n, line in enumerate(text.splitlines(), 1):
+        where = f"{source}:{n}"
+        body = line.rstrip()
+        if not body.strip() or body.lstrip().startswith("#"):
+            continue
+        item = _ITEM.match(body)
+        if item:
+            if seq_key is None:
+                raise ValueError(f"{where}: a sequence item outside a key's sequence")
+            out[seq_key] = (out[seq_key] or ()) + (_value(item.group(1) or "", where),)
+            continue
+        m = _KEY.match(body)
+        if m is None:
+            raise ValueError(f"{where}: not a flat `key: value` line: {body.strip()!r}")
+        key, rest = m.group(1), (m.group(2) or "").strip()
+        if not rest or rest.startswith("#"):
+            out[key], seq_key = None, key
+        else:
+            out[key], seq_key = _value(rest, where), None
+    return out
+
+
+def read_config_file(config_path: Optional[str]) -> dict:
+    """The Config fields a config file sets (parse_flat_yaml; keys that are
+    no Config field are ignored); {} when there is no such file."""
+    if config_path is None or not os.path.isfile(config_path):
+        return {}
+    with open(config_path) as f:
+        loaded = parse_flat_yaml(f.read(), config_path)
+    known = {f.name for f in dataclasses.fields(Config)}
+    return {k: v for k, v in loaded.items() if k in known}
+
+
+def load_config(config_path: Optional[str] = None, **overrides) -> Config:
+    """Build a Config: dataclass defaults, then the config file, then
+    overrides (highest wins)."""
+    values = read_config_file(config_path)
     values.update({k: v for k, v in overrides.items() if v is not None})
     return Config(**values)

@@ -10,7 +10,11 @@ ROOT_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CODE_DIR = os.path.join(ROOT_DIR, "metaviterbinet_tpu_torch")
 RESOURCES_DIR = os.path.join(ROOT_DIR, "resources")
 RESULTS_DIR = os.path.join(ROOT_DIR, "results")
-# the port's checkpoints (.pt), apart from the JAX package's (.msgpack)
+# the port's checkpoints (.pt), curve cache and figures, apart from the JAX
+# package's results/{weights,plots,figures}: a curve cached by the JAX
+# package must never be read back as one the port computed
 WEIGHTS_DIR = os.path.join(RESULTS_DIR, "torch_weights")
+PLOTS_DIR = os.path.join(RESULTS_DIR, "torch_plots")
+FIGURES_DIR = os.path.join(RESULTS_DIR, "torch_figures")
 COST2100_DIR = os.path.join(RESOURCES_DIR, "cost2100_channel")
 CONFIG_PATH = os.path.join(CODE_DIR, "config.yaml")

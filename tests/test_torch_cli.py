@@ -91,9 +91,12 @@ def test_cli_evaluate_va_on_the_cpu(capsys):
 def test_cli_rejects_unknown_field_and_unported_commands():
     with pytest.raises(SystemExit):
         cli.main(["evaluate", "--detector", "va", "--device", "cpu", "--set", "nonsense=1"])
-    for command in ("sweep", "taps", "bench"):
+    with pytest.raises(SystemExit):
+        cli.main(["bench"])
+    # sweep and taps take no detector (tests/test_torch_plotters.py runs them)
+    for command in ("sweep", "taps"):
         with pytest.raises(SystemExit):
-            cli.main([command])
+            cli.main([command, "--detector", "va"])
     with pytest.raises(SystemExit):
         cli.main(["evaluate", "--detector", "multistream_lstm", "--device", "cpu"])
 

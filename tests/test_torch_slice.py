@@ -223,19 +223,55 @@ def test_entry_points_default_to_the_card():
         tlstm.from_params(lstm_params)
 
 
-def test_port_imports_nothing_of_jax():
+def test_port_imports_nothing_of_jax(tmp_path):
+    """In a process where jax, flax, optax, yaml, msgpack, matplotlib and the
+    JAX package cannot be imported (as on the card's machine, which has
+    none of the first six): every module of the port and chip_smoke.py
+    import, and the readers run: load_config on the port's config.yaml, on
+    a provenance the port writes and on the JAX package's (a mesh_shape
+    raises NotImplementedError), and load_checkpoint on the JAX package's
+    ViterbiNet and LSTM checkpoints."""
+    from metaviterbinet_tpu import config as jconfig
+    from metaviterbinet_tpu.train import checkpoint as jcheckpoint
+    from metaviterbinet_tpu_torch.train.checkpoint import save_config_provenance
+
+    port_yaml = save_config_provenance(str(tmp_path / "port"), Config(eval_mode="by_word"))
+    jax_yaml = jcheckpoint.save_config_provenance(str(tmp_path / "jax"),
+                                                  jconfig.Config(lr=1e-5, val_frames=3))
+    mesh_yaml = jcheckpoint.save_config_provenance(str(tmp_path / "mesh"),
+                                                   jconfig.Config(mesh_shape=(2,)))
+    for name, params in (("vnet", jvnet.init_params(jax.random.PRNGKey(0), 16)),
+                         ("lstm", jlstm.init_params(jax.random.PRNGKey(0)))):
+        jcheckpoint.save_params(str(tmp_path / name), 10.0, 0.2, params, 0.5)
     code = (
         "import importlib, pkgutil, sys\n"
-        "for name in ('jax', 'flax', 'optax', 'yaml', 'metaviterbinet_tpu'):\n"
+        "for name in ('jax', 'flax', 'optax', 'yaml', 'msgpack', 'matplotlib',\n"
+        "             'metaviterbinet_tpu'):\n"
         "    sys.modules[name] = None\n"
         "import metaviterbinet_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
+        "from metaviterbinet_tpu_torch import Config, load_config\n"
+        "from metaviterbinet_tpu_torch.paths import CONFIG_PATH\n"
+        "from metaviterbinet_tpu_torch.train.checkpoint import load_checkpoint\n"
+        "root = sys.argv[1]\n"
+        "assert load_config(CONFIG_PATH) == Config()\n"
+        "assert load_config(root + '/port/config.yaml') == Config(eval_mode='by_word')\n"
+        "assert load_config(root + '/jax/config.yaml') == Config(lr=1e-5, val_frames=3)\n"
+        "try:\n"
+        "    load_config(root + '/mesh/config.yaml')\n"
+        "    raise SystemExit('mesh_shape did not raise')\n"
+        "except NotImplementedError:\n"
+        "    pass\n"
+        "for name, key in (('vnet', 'w2'), ('lstm', 'w_hh1')):\n"
+        "    ckpt = load_checkpoint(f'{root}/{name}', 10.0, 0.2, 'cpu')\n"
+        "    assert key in ckpt['params'] and ckpt['loss'] == 0.5, ckpt\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=ROOT_DIR)
-    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT_DIR, env=env,
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=ROOT_DIR, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 24
+    # 37 modules before the experiment harness (plotters/: 5; train/msgpack.py)
+    assert int(proc.stdout.split()[-1]) >= 43
