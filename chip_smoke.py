@@ -82,8 +82,9 @@ Phases, each of which fails the run on error:
               command unchunked; `python -m metaviterbinet_tpu_torch
               evaluate --detector va` in a subprocess, against the same eval
               in process; and the same in a subprocess with `--config` of
-              the vnet directory's config.yaml (the flat reader, with no
-              `yaml` on the card's machine), against the eval in process;
+              the vnet directory's config.yaml (the flat reader, with
+              yaml, msgpack and flax blocked in the subprocess), against
+              the eval in process;
   7. bf16     Config.dtype='bfloat16': the bf16 logits and the engine detect
               on the card against the CPU, one bf16 word sweep, and no K6;
               the LSTM's bf16 logits on the card against the CPU;
@@ -1039,13 +1040,22 @@ def phase_online(weights_dir: str) -> dict:
 def harness_dirs(root: str):
     """The experiment harness's weights and curve-cache directories under
     `root` (plotters/experiments.py's WEIGHTS_DIR, plotters/cache.py's
-    PLOTS_DIR) for the duration."""
-    saved = experiments.WEIGHTS_DIR, cache.PLOTS_DIR
+    PLOTS_DIR) for the duration, and the list of the Trainers that
+    build_curve makes there (their weights_dir and online_result)."""
+    made = []
+
+    class RecordedTrainer(Trainer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    saved = experiments.WEIGHTS_DIR, cache.PLOTS_DIR, experiments.Trainer
     experiments.WEIGHTS_DIR, cache.PLOTS_DIR = f"{root}/weights", f"{root}/plots"
+    experiments.Trainer = RecordedTrainer
     try:
-        yield
+        yield made
     finally:
-        experiments.WEIGHTS_DIR, cache.PLOTS_DIR = saved
+        experiments.WEIGHTS_DIR, cache.PLOTS_DIR, experiments.Trainer = saved
 
 
 def phase_sweep(root: str, card: str) -> dict:
@@ -1074,7 +1084,7 @@ def phase_sweep(root: str, card: str) -> dict:
     di = cfg.data_indices("val")
     specs = {c.method_name: c for c in experiments.CURVES}
     out = {}
-    with harness_dirs(root):
+    with harness_dirs(root) as trainers:
         for name, (cell, tol) in SWEEP_CURVES.items():
             spec = specs[name]
             ref = float(np.mean(cells[cell]["points"][str(SWEEP_SNR)]["ref"]))
@@ -1085,12 +1095,15 @@ def phase_sweep(root: str, card: str) -> dict:
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             launches = read_launches()
+            trainer = trainers[-1]
+            n_gated = trainer.online_result.n_gated
             mean_ber = float(np.mean(ser[di]))
             jax_ber = jax_sweep["mean_coded_ber"][name][jax_at]
             print(f"sweep {name} ({spec.detector}) at {SWEEP_SNR:g} dB on COST2100: mean coded BER "
                   f"over the {len(di)} data blocks {mean_ber:.6f} (reference {ref:.6f} +- {tol}, "
                   f"{cell}); over all {len(ser)} blocks {float(np.mean(ser)):.6f} (the JAX "
-                  f"package's curve: {jax_ber}); {seconds:.3f} s; launches {launches} [{card}]")
+                  f"package's curve: {jax_ber}); {seconds:.3f} s; {n_gated} gated blocks; "
+                  f"launches {launches} [{card}]")
             if ser.shape != (cfg.n_words("val"),) or not np.all((ser >= 0) & (ser <= 1)):
                 fail(f"sweep {name}: the curve is not {cfg.n_words('val')} SERs in [0, 1]")
             if abs(mean_ber - ref) > tol:
@@ -1106,19 +1119,15 @@ def phase_sweep(root: str, card: str) -> dict:
                 if name != "ViterbiNet":
                     want["fused_viterbinet_detect"] = cfg.train_minibatch_num
                 if spec.online_meta:
-                    want["online_adapt_viterbinet"] = launches["online_adapt_viterbinet"]
-                    if not 0 < want["online_adapt_viterbinet"] <= cfg.n_words("val"):
-                        fail(f"sweep {name}: K6 launched {launches['online_adapt_viterbinet']} "
-                             "times")
+                    want["online_adapt_viterbinet"] = n_gated
+                    if n_gated == 0:
+                        fail(f"sweep {name}: no block was gated, so K6 never ran")
             if launches != want:
                 fail(f"sweep {name}: launches {launches}, expected {want}")
-            weights_dir = os.path.join(experiments.WEIGHTS_DIR, f"{spec.weights_prefix}_"
-                                       f"{cfg.val_block_length}_{cfg.n_symbols}_channel1")
-            busy = profiled_blocks(name, spec.detector, cfg.replace(
-                self_supervised=spec.self_supervised, online_meta=spec.online_meta), weights_dir)
+            busy = profiled_blocks(name, spec.detector, trainer.cfg, trainer.weights_dir)
             out[name] = {"ser": ser, "mean_data_ber": mean_ber, "reference": ref, "band": tol,
                          "mean_ber_300": float(np.mean(ser)), "jax_package_ber_300": jax_ber,
-                         "s": seconds, "launches": launches, "busy": busy}
+                         "s": seconds, "n_gated": n_gated, "launches": launches, "busy": busy}
 
         name = "Joint ViterbiNet"
         zero_launches()
@@ -1347,6 +1356,13 @@ def meta_lstm_cell(weights_dir: str, card: str) -> dict:
             "parts": runs["cuda"]["parts"]}
 
 
+# `python -m metaviterbinet_tpu_torch` with the libraries that the port's
+# readers stand in for blocked
+CLI_WITHOUT_READERS = ("import runpy, sys\n"
+                       "for name in ('yaml', 'msgpack', 'flax'): sys.modules[name] = None\n"
+                       "runpy.run_module('metaviterbinet_tpu_torch', run_name='__main__')")
+
+
 def run_cli(argv: list) -> dict:
     """cli.main in this process; returns its last line's JSON."""
     buf = io.StringIO()
@@ -1387,25 +1403,27 @@ def phase_cli(vnet_dir: str) -> dict:
 
     # the VA from the CLI in a subprocess, from --set and from --config (the
     # vnet cells' provenance: the by-word protocol at 10 dB), each against
-    # the same eval in process
+    # the same eval in process; the subprocess runs `python -m` with yaml,
+    # msgpack and flax blocked, so --config goes through the port's own
+    # reader whether or not the machine has them
     provenance = os.path.join(vnet_dir, "config.yaml")
     out = {"vnet_chunked": chunked, "vnet_unchunked": plain, "launches": chunked_launches}
     for key, args, cfg in (
             ("va", ["--snr", "10", "--set", "val_frames=12"],
              Config(val_frames=12, val_SNR_start=10.0, val_SNR_end=10.0)),
             ("va_config", ["--config", provenance], load_config(provenance))):
-        cmd = [sys.executable, "-m", "metaviterbinet_tpu_torch", "evaluate", "--detector", "va",
-               *args]
+        argv = ["evaluate", "--detector", "va", *args]
+        shown = "python -m metaviterbinet_tpu_torch (yaml, msgpack, flax blocked) " + " ".join(argv)
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=ROOT_DIR, env=dict(os.environ, PYTHONPATH=ROOT_DIR),
-                              capture_output=True, text=True, timeout=600)
+        proc = subprocess.run([sys.executable, "-c", CLI_WITHOUT_READERS, *argv], cwd=ROOT_DIR,
+                              env=dict(os.environ, PYTHONPATH=ROOT_DIR), capture_output=True,
+                              text=True, timeout=600)
         sub_s = time.perf_counter() - t0
         if proc.returncode != 0:
-            fail(f"{' '.join(cmd[1:])}: exit code {proc.returncode}\n{proc.stderr[-4000:]}")
+            fail(f"{shown}: exit code {proc.returncode}\n{proc.stderr[-4000:]}")
         sub = json.loads(proc.stdout.strip().splitlines()[-1])
         in_process = float(Trainer(cfg, "va", verbose=False).evaluate().mean())
-        print(f"python {' '.join(cmd[1:])}: exit 0 in {sub_s:.1f} s, last line {sub}; in "
-              f"process {in_process}")
+        print(f"{shown}: exit 0 in {sub_s:.1f} s, last line {sub}; in process {in_process}")
         if sub["mean_ser"] != in_process or sub["eval_mode"] != cfg.eval_mode:
             fail(f"cli subprocess {sub} differs from in process {in_process} ({cfg.eval_mode})")
         out.update({f"{key}_subprocess": sub, f"{key}_in_process": in_process,

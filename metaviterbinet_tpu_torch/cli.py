@@ -7,11 +7,15 @@
     python -m metaviterbinet_tpu_torch sweep    --snrs 7 8 9 10 11 12
     python -m metaviterbinet_tpu_torch taps     --channel cost2100 --fading-type 2
 
-Any Config field can be overridden with --set key=value, over the values of
-a --config file (the port's config.yaml or a provenance written by either
-package). `train`, `evaluate` and `sweep` run on the card unless --device
-cpu is given; `taps` computes the taps on the CPU. `sweep` and `taps` render
-figures with matplotlib and fail before any work where it is missing.
+Any Config field can be overridden with --set key=value; `train`, `evaluate`
+and `taps` read them over the values of a --config file (the port's
+config.yaml or a provenance written by either package). A sweep's Config is
+the paper's protocol (plotters.experiments.sweep_config) with only --set
+over it, as in the JAX CLI, which never applies --config to a sweep; here
+`sweep` takes no --config. `train`, `evaluate` and `sweep` run on the card
+unless --device cpu is given; `taps` computes the taps on the CPU. `sweep`
+and `taps` render figures with matplotlib and fail before any work where it
+is missing.
 `bench` is not ported.
 """
 from __future__ import annotations
@@ -21,7 +25,7 @@ import ast
 import dataclasses
 import json
 
-from metaviterbinet_tpu_torch.config import Config, load_config, read_config_file
+from metaviterbinet_tpu_torch.config import Config, load_config
 from metaviterbinet_tpu_torch.detectors import DETECTORS
 
 
@@ -54,10 +58,6 @@ def _parse_set_overrides(pairs):
     return out
 
 
-# the fields a sweep sets per point from its --snrs
-_SWEEP_SNR_FIELDS = ("val_SNR_start", "val_SNR_end", "train_SNR_start", "train_SNR_end")
-
-
 def _build_config(args) -> Config:
     overrides = _parse_set_overrides(args.set)
     if getattr(args, "snr", None) is not None:
@@ -70,23 +70,17 @@ def _build_config(args) -> Config:
     return load_config(args.config, **overrides)
 
 
-def _sweep_overrides(args) -> dict:
-    """The sweep's Config overrides: the --config file's fields but the SNR
-    ones, then --set."""
-    overrides = {k: v for k, v in read_config_file(args.config).items()
-                 if k not in _SWEEP_SNR_FIELDS}
-    overrides.update(_parse_set_overrides(args.set))
-    return overrides
-
-
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="metaviterbinet_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
 
-    def add_common(p):
-        p.add_argument("--config", default=None, help="yaml config path")
+    def add_set(p):
         p.add_argument("--set", nargs="*", metavar="KEY=VALUE",
                        help="override any Config field")
+
+    def add_common(p):
+        p.add_argument("--config", default=None, help="yaml config path")
+        add_set(p)
 
     def add_device(p):
         p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -106,7 +100,7 @@ def main(argv=None) -> int:
     p_eval.add_argument("--eval-mode", choices=["aggregated", "by_word"], default=None)
 
     p_sweep = sub.add_parser("sweep", help="full SNR sweep over all curves")
-    add_common(p_sweep)
+    add_set(p_sweep)
     add_device(p_sweep)
     p_sweep.add_argument("--snrs", type=float, nargs="+", default=[7, 8, 9, 10, 11, 12])
     p_sweep.add_argument("--channel", default="cost2100", choices=["cost2100", "time_decay"])
@@ -139,7 +133,7 @@ def main(argv=None) -> int:
         all_curves, fig = run_sweep(
             snrs=args.snrs, channel_coefficients=args.channel,
             run_over=args.run_over, plot_by_block_flag=args.by_block,
-            device=args.device, **_sweep_overrides(args),
+            device=args.device, **_parse_set_overrides(args.set),
         )
         print(json.dumps({
             "curves": [

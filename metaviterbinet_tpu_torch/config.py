@@ -3,8 +3,9 @@
 The same fields, defaults and derived quantities as the JAX package's
 `Config` (parity with the reference's flat yaml namespace, python_code/
 config.yaml:1-57). The port keeps its own copy so that it imports nothing of
-the JAX package. Config files are read by `parse_flat_yaml`, which needs no
-`yaml` (the card's machine has none).
+the JAX package. Config files are read by `parse_flat_yaml`, so that the
+port needs no `yaml`: its dependencies are torch, numpy and scipy (and
+triton on the card), the packages the card's machine is set up with.
 
 Fields whose mechanism the port does not have yet raise NotImplementedError
 when set away from their default, rather than being ignored.
@@ -161,12 +162,13 @@ class Config:
 _NULL = re.compile(r"^(?:~|null|Null|NULL|)$")
 _BOOL = {w: w.lower() in ("yes", "true", "on")
          for w in "yes Yes YES no No NO true True TRUE false False FALSE on On ON off Off OFF".split()}
-_INT = re.compile(r"^[-+]?(?:0b[0-1_]+|0[0-7_]+|0|[1-9][0-9_]*|0x[0-9a-fA-F_]+)$")
+_INT = re.compile(r"^[-+]?(?:0|[1-9][0-9_]*)$")
 _FLOAT = re.compile(r"^(?:[-+]?[0-9][0-9_]*\.[0-9_]*(?:[eE][-+][0-9]+)?|\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?"
                     r"|[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN))$")
-# the implicit types the reader does not construct: sexagesimal numbers,
-# timestamps, merge keys and the value key
-_UNSUPPORTED = re.compile(r"^(?:[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+(?:\.[0-9_]*)?"
+# the implicit types the reader does not construct: binary, octal, hex and
+# sexagesimal numbers, timestamps, merge keys and the value key
+_UNSUPPORTED = re.compile(r"^(?:[-+]?0(?:b[0-1_]+|[0-7_]+|x[0-9a-fA-F_]+)"
+                          r"|[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+(?:\.[0-9_]*)?"
                           r"|[0-9]{4}-[0-9]{1,2}-[0-9]{1,2}(?:[Tt \t].*)?|<<|=)$")
 _KEY = re.compile(r"^([A-Za-z_][A-Za-z0-9_]*)[ \t]*:(?:[ \t]+(.*))?$")
 _ITEM = re.compile(r"^[ \t]*-(?:[ \t]+(.*))?$")
@@ -181,12 +183,7 @@ def _plain(text: str, where: str):
     if _UNSUPPORTED.match(text) or ": " in text or text.endswith(":"):
         raise ValueError(f"{where}: unsupported value {text!r}")
     if _INT.match(text):
-        digits = text.replace("_", "")
-        sign = -1 if digits[0] == "-" else 1
-        digits = digits.lstrip("+-")
-        base = 2 if digits.startswith("0b") else 16 if digits.startswith("0x") else \
-            8 if len(digits) > 1 and digits[0] == "0" else 10
-        return sign * int(digits[2:] if base in (2, 16) else digits, base)
+        return int(text.replace("_", ""))
     if _FLOAT.match(text):
         digits = text.replace("_", "").lower()
         return float(digits.replace(".inf", "inf").replace(".nan", "nan"))
@@ -268,20 +265,15 @@ def parse_flat_yaml(text: str, source: str = "<config>") -> dict:
     return out
 
 
-def read_config_file(config_path: Optional[str]) -> dict:
-    """The Config fields a config file sets (parse_flat_yaml; keys that are
-    no Config field are ignored); {} when there is no such file."""
-    if config_path is None or not os.path.isfile(config_path):
-        return {}
-    with open(config_path) as f:
-        loaded = parse_flat_yaml(f.read(), config_path)
-    known = {f.name for f in dataclasses.fields(Config)}
-    return {k: v for k, v in loaded.items() if k in known}
-
-
 def load_config(config_path: Optional[str] = None, **overrides) -> Config:
-    """Build a Config: dataclass defaults, then the config file, then
+    """Build a Config: dataclass defaults, then the config file (read by
+    parse_flat_yaml; keys that are no Config field are ignored), then
     overrides (highest wins)."""
-    values = read_config_file(config_path)
+    values = {}
+    if config_path is not None and os.path.isfile(config_path):
+        with open(config_path) as f:
+            loaded = parse_flat_yaml(f.read(), config_path)
+        known = {f.name for f in dataclasses.fields(Config)}
+        values = {k: v for k, v in loaded.items() if k in known}
     values.update({k: v for k, v in overrides.items() if v is not None})
     return Config(**values)

@@ -1,5 +1,5 @@
 """A msgpack decoder for the JAX package's checkpoints, with no `msgpack`
-or `flax` (the card's machine has neither).
+or `flax` (the port depends on neither).
 
 The JAX package writes its checkpoints with flax's `msgpack_serialize`
 (metaviterbinet_tpu/train/checkpoint.py there): a msgpack map whose array

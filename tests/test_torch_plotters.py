@@ -22,6 +22,7 @@ import metaviterbinet_tpu.plotters.style as jstyle
 from metaviterbinet_tpu_torch import Config, cli, paths
 from metaviterbinet_tpu_torch.evaluation.trainer import Trainer
 from metaviterbinet_tpu_torch.plotters import cache, experiments, figures, style
+from metaviterbinet_tpu_torch.train.checkpoint import save_config_provenance
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # a sweep small enough for the CPU: 10 blocks of 24 info bits + RS nsym=1,
@@ -225,14 +226,18 @@ def test_run_sweep_builds_the_seven_curves_on_the_cpu(port_dirs):
 
 def test_cli_sweep_then_from_the_cache(port_dirs, tmp_path, capsys, monkeypatch):
     """`sweep --device cpu` builds the seven curves and prints the JAX CLI's
-    last line, with the tiny sizes from --config (whose SNR fields the
-    sweep's --snrs replace) and --set; the same command again, here with
-    --by-block, reads every curve from the cache; --run-over recomputes
-    each."""
-    config = tmp_path / "tiny.yaml"
-    config.write_text("".join(f"{k}: {v}\n" for k, v in TINY.items()) + "val_SNR_start: 12.0\n")
-    argv = ["sweep", "--snrs", "8", "--device", "cpu", "--config", str(config),
-            "--set", f"val_block_length={BLOCK}", f"n_symbols={NSYM}"]
+    last line, with the tiny sizes from --set; the same command again, here
+    with --by-block, reads every curve from the cache; --run-over recomputes
+    each. A sweep takes no --config: its Config is the paper's protocol,
+    and a config file (a provenance holds every field) would replace it."""
+    config = tmp_path / "config.yaml"
+    save_config_provenance(str(tmp_path), Config(**TINY))
+    with pytest.raises(SystemExit):
+        cli.main(["sweep", "--snrs", "8", "--device", "cpu", "--config", str(config)])
+    assert _files(port_dirs["plots"]) == []
+    argv = ["sweep", "--snrs", "8", "--device", "cpu", "--set",
+            *(f"{k}={v}" for k, v in TINY.items()),
+            f"val_block_length={BLOCK}", f"n_symbols={NSYM}"]
     assert cli.main(argv) == 0
     assert _files(port_dirs["plots"])[0].endswith(f"_8.0_{BLOCK}_{NSYM}_ISI_AWGN.pkl")
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])

@@ -1,6 +1,6 @@
-"""The port's readers that need no `yaml`, `flax` or `msgpack` (the card's
-machine has none), against those libraries on the CPU: the flat YAML reader
-of config files (`config.parse_flat_yaml`, `load_config`, `--config`) and
+"""The port's readers that need no `yaml`, `flax` or `msgpack` (the port
+depends on none of them), against those libraries on the CPU: the flat
+YAML reader of config files (`config.parse_flat_yaml`, `load_config`, `--config`) and
 the msgpack decoder of the JAX package's checkpoints (`train/msgpack.py`,
 `train/checkpoint.load_checkpoint`, `Trainer.load_weights`)."""
 import argparse
@@ -91,9 +91,9 @@ def test_flat_reader_equals_yaml_safe_load(kind, tmp_path):
 
 def test_flat_reader_reads_yaml_11_scalars_as_pyyaml_does(tmp_path):
     """PyYAML's YAML 1.1 rules where they surprise: 1e-3 (no dot) is a string
-    and 1.0e-3 a float, yes/on are booleans, 0x and 0-led ints, ~ is null.
+    and 1.0e-3 a float, yes/on are booleans, ~ is null, _ in numbers.
     So the port's provenance writes lr=1e-5 as 1.0e-05, not JSON's 1e-05."""
-    text = ("a: 1e-3\nb: 1.0e-3\nc: yes\nd: On\ne: 0x1F\nf: 017\ng: ~\nh: .inf\ni: -.5e+2\n"
+    text = ("a: 1e-3\nb: 1.0e-3\nc: yes\nd: On\ne: -1_000\nf: 1_0.5\ng: ~\nh: .inf\ni: -.5e+2\n"
             "j: '1e-3'\nk: [2, 4]\nl: []\nm: x#y  # comment\nn:\n")
     path = tmp_path / "scalars.yaml"
     path.write_text(text)
@@ -130,6 +130,10 @@ def test_jax_provenance_with_a_mesh_reads_as_a_tuple_and_raises(tmp_path):
     ("a: 1\n---\nb: 2\n", 2),           # several documents
     ("a: 2020-01-01\n", 1),             # timestamp
     ("a: [[1]]\n", 1),                  # nested flow sequence
+    ("a: 0x1F\n", 1),                   # hex, octal and binary ints
+    ("a: 017\n", 1),
+    ("a: -0b10\n", 1),
+    ("a: 1:30\n", 1),                   # sexagesimal
     ("a: 'x' y\n", 1),                  # text after a quoted value
 ])
 def test_flat_reader_rejects_what_it_does_not_read(text, line):

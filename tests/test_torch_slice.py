@@ -225,9 +225,8 @@ def test_entry_points_default_to_the_card():
 
 def test_port_imports_nothing_of_jax(tmp_path):
     """In a process where jax, flax, optax, yaml, msgpack, matplotlib and the
-    JAX package cannot be imported (as on the card's machine, which has
-    none of the first six): every module of the port and chip_smoke.py
-    import, and the readers run: load_config on the port's config.yaml, on
+    JAX package cannot be imported (the port depends on none of them):
+    every module of the port and chip_smoke.py import, and the readers run: load_config on the port's config.yaml, on
     a provenance the port writes and on the JAX package's (a mesh_shape
     raises NotImplementedError), and load_checkpoint on the JAX package's
     ViterbiNet and LSTM checkpoints."""
