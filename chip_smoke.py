@@ -67,10 +67,10 @@ Phases, each of which fails the run on error:
               minibatches) and the first 6 blocks of its meta run, through
               the first meta event (second-order MAML steps), on the card
               and on the CPU, with the seconds per step and an estimate of a
-              300-block run. Their output is printed after phase 7;
+              300-block run. Their output is printed after phase 7b;
   5c. sweep   the experiment harness (plotters/experiments.py) at the
               protocol's full width, in a third process of its own beside
-              phases 5-7 (see start_beside), printed after phase 7:
+              phases 5-7 (see start_beside), printed after phase 7b:
               build_curve over sweep_config(8 dB, block 120, RS nsym=2,
               COST2100 test channel) for four of the seven curves, each
               against its reference band, with its launch counts, seconds
@@ -88,6 +88,21 @@ Phases, each of which fails the run on error:
   7. bf16     Config.dtype='bfloat16': the bf16 logits and the engine detect
               on the card against the CPU, one bf16 word sweep, and no K6;
               the LSTM's bf16 logits on the card against the CPU;
+  7b. parallel the parallel layer on a world-1 NCCL group (init_distributed),
+              in the main process while phases 5b and 5c finish, checks
+              only: the aggregated protocol with Config.mesh_shape=(1,) (VA
+              over 7..12 dB, the trained ViterbiNet at 10 dB with
+              eval_time_chunks 0 and 4), bit-equal to the same runs without
+              a mesh, launching K2 6, K1 1 and K4 1 times;
+              sequence_parallel_decode over a one-rank 'sp' axis and
+              chunked_decode_reference (32 chunks, overlap 32) on VA priors
+              at 10 dB, 128 x 8192, each one K5 launch with no bit apart
+              from one sequential K5 launch (and the chunked decode's
+              mismatch rate on N(0,1) priors at overlap 32 and 64, not
+              gated); viterbi_decode_lowlat equal to K5 on integer priors
+              and at least 0.999 equal on float priors; one
+              make_dp_train_step SGD step within 1e-6 of the step with no
+              collective;
   8. width    time the kernels and their plain versions on the device (a CUDA
               graph of back-to-back calls) and per eager call: K1 and K2 at
               300 x 136 and 65536 x 136, K2 at 1 x 136, K4 at 300 x 136 with
@@ -97,7 +112,12 @@ Phases, each of which fails the run on error:
               words), K5 at 1 x 136 and 300 x 136, K6 at
               T = 136 with 200 steps (with its cluster size, its bound at
               the cluster's share of the card and at one SM's, and its time
-              per step);
+              per step); viterbi_decode_lowlat at 1 x 136 beside K5 on the
+              same priors, and chunked_decode_reference (one K5 over 4096
+              chains of 288 steps) beside sequential K5 at 128 x 8192;
+  8b. bench   `python -m metaviterbinet_tpu_torch bench` in a process of its
+              own, alone on the card: its card line and JSON line, with
+              bench.py's keys and a positive value;
   9. report   a `{"kernels": [...]}` line, then the card line, then
               `{"ok": true, "device": {...}}` as the last line.
 
@@ -118,22 +138,29 @@ import sys
 import tempfile
 import time
 import warnings
+from unittest import mock
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from metaviterbinet_tpu_torch import Config, cli, load_config
+from metaviterbinet_tpu_torch import Config, bench, cli, load_config
 from metaviterbinet_tpu_torch.data.dataset import ChannelDataset, generate_words
 from metaviterbinet_tpu_torch.ecc.rs import rs_encode_bits
 from metaviterbinet_tpu_torch.evaluation.trainer import Trainer
 from metaviterbinet_tpu_torch.kernels import acs, online_sgd
 from metaviterbinet_tpu_torch.models import lstm, va, viterbinet
 from metaviterbinet_tpu_torch.online.engine import Draws, run_online, uses_fused_adaptation
-from metaviterbinet_tpu_torch.ops.trellis import calculate_states
+from metaviterbinet_tpu_torch.ops.trellis import calculate_states, viterbi_decode_lowlat
+from metaviterbinet_tpu_torch.parallel import decode as parallel_decode
+from metaviterbinet_tpu_torch.parallel.decode import (
+    chunked_decode_reference, sequence_parallel_decode)
+from metaviterbinet_tpu_torch.parallel.mesh import init_distributed, make_mesh
+from metaviterbinet_tpu_torch.parallel.training import make_dp_train_step
 from metaviterbinet_tpu_torch.paths import RESOURCES_DIR, ROOT_DIR
 from metaviterbinet_tpu_torch.plotters import cache, experiments
 from metaviterbinet_tpu_torch.train.checkpoint import ckpt_path
-from metaviterbinet_tpu_torch.train.losses import select_batch
+from metaviterbinet_tpu_torch.train.losses import make_loss_fn, select_batch
 from metaviterbinet_tpu_torch.train.loop import word_sweep
 from metaviterbinet_tpu_torch.train.optim import ADAM_B1, ADAM_B2, ADAM_EPS, Optimizer
 
@@ -222,6 +249,13 @@ KERNELS = ("fused_viterbinet_detect", "fused_va_detect", "fused_viterbinet_detec
 OVERLAP = 32  # Config.decode_overlap
 # the anchors' bands (tests/test_parity_anchor.py:22-30, :65-84)
 UNCODED_VA_TOL, COST2100_VA_TOL = 0.006, 0.005
+# the long-stream decode of phases 7b and 8: W words x T steps of VA priors
+# at 10 dB, cut into SP_CHUNKS chunks of T / SP_CHUNKS steps (the size of
+# resources/overlap_save_chip.json, which a TPU measured)
+SP_W, SP_T, SP_CHUNKS = 128, 8192, 32
+# viterbi_decode_lowlat against K5 on float metrics: the share of equal bits
+# at least (JAX's contract, tests/test_trellis.py)
+LOWLAT_AGREEMENT = 0.999
 # bf16 logits on the card against the CPU: within 0.03 of max(1, |logit|),
 # about four bf16 ulps at the largest logit (cuBLAS and the CPU may round
 # a bf16 product apart, and an h2 that differs by one ulp moves the logits)
@@ -233,10 +267,7 @@ def fail(msg: str) -> None:
 
 
 def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    return out.splitlines()[0]
+    return bench.device_line(torch.device("cuda"))
 
 
 def wrapper(name: str):
@@ -549,7 +580,10 @@ def phase_build() -> None:
             fail(f"{name}: no tensor-core instruction in its SASS")
 
 
-KERNEL_CHECK_SHAPES = ((4096, T_PROTO), (4096, 41), (1000, T_PROTO), (1000, 41), (PROTO_W, T_PROTO))
+# (W, T) of K1 and K2 against their plain versions; WIDE_W x T_PROTO is the
+# bench's headline shape
+KERNEL_CHECK_SHAPES = ((WIDE_W, T_PROTO), (4096, T_PROTO), (4096, 41), (1000, T_PROTO),
+                       (1000, 41), (PROTO_W, T_PROTO))
 # (W, T, chunks) of K4 against its plain version, and the chunk counts at
 # which it must give K1's bits on the protocol's channel words
 CHUNKED_CHECK_SHAPES = ((PROTO_W, T_PROTO, 2), (PROTO_W, T_PROTO, 4), (4096, T_PROTO, 4),
@@ -1506,6 +1540,169 @@ def phase_bf16(model: viterbinet.ViterbiNet) -> dict:
             "lstm_bits_differ": lstm_mismatch}
 
 
+def va_long_priors(W: int, T: int, gen: torch.Generator) -> torch.Tensor:
+    """The full-CSI VA's branch metrics of kernel_inputs' words at 10 dB."""
+    y, mu = kernel_inputs(W, T, gen)
+    return va.branch_priors_from_mu(y, mu).contiguous()
+
+
+# the launches of the mesh_shape=(1,) runs of phase 7b; every other kernel's is 0
+MESH_LAUNCHES = {"fused_va_detect": 6, "fused_viterbinet_detect": 1,
+                 "fused_viterbinet_detect_chunked": 1}
+
+
+def k5_plain_in_decode():
+    """parallel/decode.py's decodes through K5's plain version on the card."""
+    return mock.patch.object(parallel_decode, "viterbi_decode_kernel",
+                             acs.viterbi_decode_kernel_plain)
+
+
+def phase_parallel(trained: viterbinet.ViterbiNet, gen: torch.Generator) -> dict:
+    """The parallel layer on one card: a world-1 NCCL group, so the
+    collectives are real but have one rank. Checks only; its times would
+    share the card with phases 5b and 5c."""
+    init_distributed()
+    backend, world = dist.get_backend(), dist.get_world_size()
+    print(f"parallel: process group backend {backend}, world size {world}")
+    if (backend, world) != ("nccl", 1):
+        fail(f"init_distributed on the card formed a {backend} group of {world}")
+
+    # the aggregated protocol words-sharded over a 'dp' mesh of one rank
+    # (Config.mesh_shape), each run beside its mesh-less twin from the same
+    # seeds
+    cfg = Config(val_frames=12, val_SNR_start=7.0, val_SNR_end=12.0)
+    vnet_cfg = cfg.replace(val_SNR_start=10.0, val_SNR_end=10.0)
+    runs = {"va 7..12 dB": (cfg, "va", None),
+            "vnet (trained) 10 dB, eval_time_chunks=0": (vnet_cfg, "vnet", trained),
+            "vnet (trained) 10 dB, eval_time_chunks=4":
+                (vnet_cfg.replace(eval_time_chunks=4), "vnet", trained)}
+    zero_launches()
+    mesh_bers = {name: Trainer(c.replace(mesh_shape=(1,)), det, params=p, verbose=False).evaluate()
+                 for name, (c, det, p) in runs.items()}
+    mesh_launches = read_launches()
+    for name, (c, det, p) in runs.items():
+        plain = Trainer(c, det, params=p, verbose=False).evaluate()
+        print(f"mesh_shape=(1,) {name}: coded BER {mesh_bers[name].tolist()}, without a mesh "
+              f"{plain.tolist()}, bit-equal {np.array_equal(mesh_bers[name], plain)}")
+        if not np.array_equal(mesh_bers[name], plain):
+            fail(f"mesh_shape=(1,) {name}: {mesh_bers[name]} differs from {plain}")
+    print(f"mesh_shape=(1,) launches: {mesh_launches}")
+    if mesh_launches != dict.fromkeys(KERNELS, 0) | MESH_LAUNCHES:
+        fail(f"the sharded protocol did not go through K2 6, K1 1, K4 1 and no other "
+             f"kernel: {mesh_launches}")
+
+    # the sequence-parallel decode over a one-rank 'sp' axis and the chunked
+    # decode, each one K5 launch (at 128 x 8224 and 4096 x 288), against the
+    # same decode through K5's plain version, and against the sequential K5
+    # and its plain version at 128 x 8192
+    priors = va_long_priors(SP_W, SP_T, gen)
+    seq = acs.viterbi_decode_kernel(priors)
+    seq_plain = acs.viterbi_decode_kernel_plain(priors)
+    check_bits("viterbi_decode_kernel (sequential)", SP_W, SP_T, seq, seq_plain, 0.0)
+    decode_runs = {
+        "sequence_parallel_decode": lambda p, ov: sequence_parallel_decode(
+            make_mesh((1, 1)), ov)(p),
+        f"chunked_decode_reference C={SP_CHUNKS}": lambda p, ov: chunked_decode_reference(
+            p, SP_CHUNKS, ov)}
+    decodes = {}
+    for name, run in decode_runs.items():
+        zero_launches()
+        bits = run(priors, OVERLAP)
+        launches = read_launches()
+        with k5_plain_in_decode():
+            bits_plain = run(priors, OVERLAP)
+        check_bits(f"{name} overlap={OVERLAP}", SP_W, SP_T, bits, bits_plain, 0.0,
+                   against="the same decode through K5's plain version")
+        check_bits(f"{name} overlap={OVERLAP}", SP_W, SP_T, bits, seq_plain, 0.0,
+                   against="the plain sequential decode")
+        mismatches = int((bits != seq).sum())
+        print(f"{name} overlap={OVERLAP} on VA priors at 10 dB, {SP_W} x {SP_T}: {mismatches} "
+              f"bits apart from sequential K5; launches {launches}")
+        if mismatches or launches["viterbi_decode_kernel"] != 1 or \
+                sum(launches.values()) != 1:
+            fail(f"{name}: {mismatches} bits apart, launches {launches}")
+        decodes[name] = {"mismatches": mismatches, "launches": launches}
+    noise = torch.randn((SP_W, SP_T, 16), generator=gen, device="cuda")
+    seq_noise = acs.viterbi_decode_kernel(noise)
+    noise_rates = {}
+    for overlap in (OVERLAP, 2 * OVERLAP):
+        bits = chunked_decode_reference(noise, SP_CHUNKS, overlap)
+        noise_rates[overlap] = float((bits != seq_noise).float().mean())
+    print(f"chunked_decode_reference C={SP_CHUNKS} on N(0,1) priors: mismatch rate by overlap "
+          f"{noise_rates} (not gated: such priors hardly tell the states apart)")
+    del priors, seq, noise, seq_noise
+
+    # viterbi_decode_lowlat against K5
+    rng = np.random.default_rng(0)
+    lowlat = {}
+    for shape in ((8, 37, 16), (1, T_PROTO, 16)):
+        p = torch.as_tensor(rng.integers(0, 12, size=shape).astype(np.float32), device="cuda")
+        equal = torch.equal(viterbi_decode_lowlat(p), acs.viterbi_decode_kernel(p))
+        print(f"viterbi_decode_lowlat {shape} integer priors: equal to K5 {equal}")
+        if not equal:
+            fail(f"viterbi_decode_lowlat {shape}: differs from K5 on integer priors")
+        lowlat[f"integer {shape}"] = equal
+    p = torch.as_tensor(np.random.default_rng(1).normal(size=(16, T_PROTO, 16))
+                        .astype(np.float32) ** 2, device="cuda")
+    agree = float((viterbi_decode_lowlat(p) == acs.viterbi_decode_kernel(p)).float().mean())
+    print(f"viterbi_decode_lowlat (16, {T_PROTO}, 16) float priors: {agree:.6f} of the bits equal "
+          f"to K5 (at least {LOWLAT_AGREEMENT})")
+    if agree < LOWLAT_AGREEMENT:
+        fail(f"viterbi_decode_lowlat: {agree} agreement with K5 on float priors")
+    lowlat["float agreement"] = agree
+
+    # one data-parallel SGD step over a one-rank 'dp' axis against the same
+    # step with no collective
+    model = viterbinet.init_params(16, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    twin = copy.deepcopy(model)
+    params, twin_params = viterbinet.param_dict(model), viterbinet.param_dict(twin)
+    loss_fn = make_loss_fn(viterbinet.logits, "states", 4, False)
+    opt = Optimizer("SGD", 0.1)
+    rx = torch.randn((16, 40), generator=gen, device="cuda")
+    tx = torch.randint(0, 2, (16, 40), generator=gen, device="cuda").float()
+    _, _, loss_dp = make_dp_train_step(make_mesh((1,), ("dp",)), loss_fn, opt)(
+        params, opt.init(params), rx, tx)
+    loss = loss_fn(twin_params, rx, tx)
+    grads = torch.autograd.grad(loss, list(twin_params.values()))
+    opt.step(twin_params, dict(zip(twin_params, grads)), opt.init(twin_params))
+    dp_diff = max([abs(float(loss_dp) - loss.item())] +
+                  [float((params[k] - twin_params[k]).abs().max()) for k in params])
+    print(f"make_dp_train_step (SGD 0.1, 16 x 40) at world size 1: max |diff| {dp_diff:.3e} "
+          "against the step with no collective (limit 1e-6)")
+    if not dp_diff <= 1e-6:
+        fail(f"make_dp_train_step: {dp_diff} from the step with no collective")
+    dist.destroy_process_group()
+    return {"backend": backend, "world_size": world,
+            "mesh_coded_ber": {k: v.tolist() for k, v in mesh_bers.items()},
+            "mesh_launches": mesh_launches, "decodes": decodes,
+            "noise_mismatch_by_overlap": noise_rates, "lowlat": lowlat, "dp_step_diff": dp_diff}
+
+
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "best", "worst", "spread_pct",
+              "methodology", "e2e_eval")
+
+
+def phase_bench() -> dict:
+    """`python -m metaviterbinet_tpu_torch bench` in a process of its own,
+    alone on the card: its last line has bench.py's keys and a positive
+    value."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "metaviterbinet_tpu_torch", "bench"],
+                          cwd=ROOT_DIR, env=dict(os.environ, PYTHONPATH=ROOT_DIR),
+                          capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"bench: exit code {proc.returncode}\n{proc.stderr[-4000:]}")
+    lines = proc.stdout.strip().splitlines()
+    line = json.loads(lines[-1])
+    print(f"bench ({seconds:.1f} s): {lines[-2]}")
+    print(f"bench: {lines[-1]}")
+    missing = [k for k in BENCH_KEYS if k not in line]
+    if missing or not line["value"] > 0:
+        fail(f"bench: keys missing {missing} or value {line.get('value')} not positive")
+    return dict(line, seconds=seconds, card_line=lines[-2])
+
+
 CHUNKED_TIMED = ((PROTO_W, 2), (PROTO_W, 4), (WIDE_W, 4))
 
 
@@ -1567,6 +1764,33 @@ def phase_width(model: viterbinet.ViterbiNet, gen: torch.Generator, card: str) -
         priors = mlp_priors(model, kernel_inputs(W, T_PROTO, gen)[0])
         record("viterbi_decode_kernel", W, lambda: acs.viterbi_decode_kernel(priors),
                lambda: acs.viterbi_decode_kernel_plain(priors), decode_bound_ms(W, T_PROTO, 16))
+    # phase 7b's decodes: the (min,+) prefix decode at one word beside K5 on
+    # the same priors, and the chunked decode beside one sequential K5 at
+    # the long-stream size
+    p = torch.as_tensor(np.random.default_rng(1).normal(size=(1, T_PROTO, 16))
+                        .astype(np.float32) ** 2, device="cuda")
+    lowlat = {"ms": graph_ms(lambda: viterbi_decode_lowlat(p)),
+              "call_ms": call_ms(lambda: viterbi_decode_lowlat(p)),
+              "k5_ms": graph_ms(lambda: acs.viterbi_decode_kernel(p)),
+              "k5_call_ms": call_ms(lambda: acs.viterbi_decode_kernel(p))}
+    print(f"width viterbi_decode_lowlat 1 x {T_PROTO}: {lowlat['ms']:.5f} ms on the device, "
+          f"{lowlat['call_ms']:.5f} ms per eager call; K5 on the same priors "
+          f"{lowlat['k5_ms']:.5f} ms on the device, {lowlat['k5_call_ms']:.5f} ms per eager call "
+          f"[{card}]")
+    priors = va_long_priors(SP_W, SP_T, gen)
+    chunked = {"ms": graph_ms(lambda: chunked_decode_reference(priors, SP_CHUNKS, OVERLAP),
+                              per_graph=5, replays=5),
+               "sequential_k5_ms": graph_ms(lambda: acs.viterbi_decode_kernel(priors),
+                                            per_graph=5, replays=5),
+               "bound_ms": decode_bound_ms(SP_W, SP_T, 16)[0]}
+    ext = OVERLAP + SP_T // SP_CHUNKS
+    print(f"width chunked_decode_reference {SP_W} x {SP_T}, C={SP_CHUNKS}, overlap={OVERLAP} (one "
+          f"K5 over {SP_W * SP_CHUNKS} chains of {ext} steps, with the warm-up copies): "
+          f"{chunked['ms']:.5f} ms on the device; sequential K5 over {SP_W} chains of {SP_T} steps "
+          f"{chunked['sequential_k5_ms']:.5f} ms; K5's bound at {SP_W} x {SP_T} "
+          f"{chunked['bound_ms']:.5f} ms [{card}]")
+    del priors
+    times["lowlat"], times["chunked_decode"] = lowlat, chunked
     params, y, states = adapt_inputs()
     state = Optimizer("Adam", 1e-3).init(params)
     bound = adapt_bound_ms(T_PROTO, 16, K6_ITERS)
@@ -1599,7 +1823,8 @@ SOURCES = {"fused_va_detect": "metaviterbinet_tpu_torch/kernels/csrc/va_detect.c
            "online_adapt_viterbinet": "metaviterbinet_tpu_torch/kernels/csrc/online_adapt.cu"}
 
 
-def kernel_rows(checks: dict, sl: dict, online: dict, sweep: dict, times: dict) -> list:
+def kernel_rows(checks: dict, sl: dict, online: dict, sweep: dict, times: dict,
+                parallel: dict, bench_line: dict) -> list:
     rows = []
     meta_launches = online["meta_vnet_meta"]["launches"]
     for name in ("fused_viterbinet_detect", "fused_va_detect"):
@@ -1663,6 +1888,9 @@ def kernel_rows(checks: dict, sl: dict, online: dict, sweep: dict, times: dict) 
         "bound_by_300": wide["bound_by"],
         "launches_vnet_joint": online["vnet_joint"]["launches"][name],
         "checked": [{"shape": [W, T, 16], **checks[(name, W, T)]} for W, T in DECODE_CHECK_SHAPES],
+        "beside_lowlat_1x136": times["lowlat"],
+        "chunked_decode_reference": {"shape": [SP_W, SP_T, 16], "chunks": SP_CHUNKS,
+                                     "overlap": OVERLAP, **times["chunked_decode"]},
     })
     name = "online_adapt_viterbinet"
     row = times[(name, 1)]
@@ -1682,6 +1910,10 @@ def kernel_rows(checks: dict, sl: dict, online: dict, sweep: dict, times: dict) 
     for row in rows:
         row["launches_sweep"] = {curve: sweep[curve]["launches"][row["name"]]
                                  for curve in SWEEP_CURVES}
+        row["launches_parallel"] = {
+            "mesh_shape=(1,) protocol": parallel["mesh_launches"][row["name"]],
+            **{path: d["launches"][row["name"]] for path, d in parallel["decodes"].items()}}
+        row["launches_bench"] = bench_line["launches"].get(row["name"], 0)
     return rows
 
 
@@ -1719,11 +1951,14 @@ def main() -> int:
         online = timed("online", phase_online, weights_dir)
         cli_out = timed("cli", phase_cli, f"{weights_dir}/vnet")
         bf16 = timed("bf16", phase_bf16, model)
-        lstm_out, sweep = timed("lstm and sweep (the wait after phase 7)", finish_beside, jobs)
+        parallel = timed("parallel", phase_parallel, trained, gen)
+        lstm_out, sweep = timed("lstm and sweep (the wait after phase 7b)", finish_beside, jobs)
         torch.set_num_threads(threads)
     times = timed("width", phase_width, model, gen, card)
+    bench_line = timed("bench", phase_bench)
 
-    print(json.dumps({"kernels": kernel_rows(checks, sl, online, sweep, times), "card": card,
+    print(json.dumps({"kernels": kernel_rows(checks, sl, online, sweep, times, parallel, bench_line),
+                      "card": card,
                       "eval_s_per_1000_words": {
                           "va_sweep": sl["va_s_per_1k"], "va_loop": sl["va_loop_s_per_1k"],
                           "vnet": sl["vnet_s_per_1k"], "vnet_chunked": sl["vnet_chunked_s_per_1k"]},
@@ -1733,7 +1968,8 @@ def main() -> int:
                                               "trained_params": sl["vnet_trained_ber_10db"]},
                       "anchors": anchors, "by_word_10db": online, "lstm": lstm_out,
                       "sweep_8db_cost2100": sweep,
-                      "cli": cli_out, "bf16": bf16, "phase_seconds": seconds}))
+                      "cli": cli_out, "bf16": bf16, "parallel": parallel, "bench": bench_line,
+                      "phase_seconds": seconds}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

@@ -1,22 +1,23 @@
-"""Command-line interface of the port (the JAX package's cli.py, for its
-`train`, `evaluate`, `sweep` and `taps` commands).
+"""Command-line interface of the port (the JAX package's cli.py: `train`,
+`evaluate`, `sweep`, `bench` and `taps`).
 
     python -m metaviterbinet_tpu_torch train    --detector vnet --snr 10
     python -m metaviterbinet_tpu_torch evaluate --detector vnet --set eval_time_chunks=4
     python -m metaviterbinet_tpu_torch evaluate --detector va --config weights/config.yaml
     python -m metaviterbinet_tpu_torch sweep    --snrs 7 8 9 10 11 12
     python -m metaviterbinet_tpu_torch taps     --channel cost2100 --fading-type 2
+    python -m metaviterbinet_tpu_torch bench
 
 Any Config field can be overridden with --set key=value; `train`, `evaluate`
 and `taps` read them over the values of a --config file (the port's
 config.yaml or a provenance written by either package). A sweep's Config is
 the paper's protocol (plotters.experiments.sweep_config) with only --set
 over it, as in the JAX CLI, which never applies --config to a sweep; here
-`sweep` takes no --config. `train`, `evaluate` and `sweep` run on the card
-unless --device cpu is given; `taps` computes the taps on the CPU. `sweep`
-and `taps` render figures with matplotlib and fail before any work where it
-is missing.
-`bench` is not ported.
+`sweep` takes no --config. `train`, `evaluate`, `sweep` and `bench` run on
+the card unless --device cpu is given; `taps` computes the taps on the CPU.
+`sweep` and `taps` render figures with matplotlib and fail before any work
+where it is missing. `bench` prints the card's line and the JSON line of
+metaviterbinet_tpu_torch/bench.py.
 """
 from __future__ import annotations
 
@@ -107,6 +108,8 @@ def main(argv=None) -> int:
     p_sweep.add_argument("--run-over", action="store_true")
     p_sweep.add_argument("--by-block", action="store_true")
 
+    add_device(sub.add_parser("bench", help="run the headline benchmark"))
+
     p_taps = sub.add_parser(
         "taps", help="plot channel tap trajectories (reference channel_estimation.py:52-70)")
     add_common(p_taps)
@@ -115,6 +118,11 @@ def main(argv=None) -> int:
     p_taps.add_argument("--blocks", type=int, default=300)
 
     args = parser.parse_args(argv)
+
+    if args.command == "bench":
+        from metaviterbinet_tpu_torch import bench
+        bench.main(device=args.device)
+        return 0
 
     if args.command == "taps":
         from metaviterbinet_tpu_torch.plotters.figures import plot_tap_trajectories

@@ -6,9 +6,6 @@ config.yaml:1-57). The port keeps its own copy so that it imports nothing of
 the JAX package. Config files are read by `parse_flat_yaml`, so that the
 port needs no `yaml`: its dependencies are torch, numpy and scipy (and
 triton on the card), the packages the card's machine is set up with.
-
-Fields whose mechanism the port does not have yet raise NotImplementedError
-when set away from their default, rather than being ignored.
 """
 from __future__ import annotations
 
@@ -21,10 +18,6 @@ from typing import Optional
 
 import numpy as np
 
-# field -> the only value the port runs with until its mechanism is ported
-_NOT_PORTED = {
-    "mesh_shape": None,
-}
 COMPUTE_DTYPES = ("float32", "bfloat16")
 
 
@@ -98,7 +91,10 @@ class Config:
     # always goes through the kernel wrappers of kernels/acs.py, which launch
     # the hand-written CUDA kernel for a CUDA tensor and run its plain
     # PyTorch version only for a CPU tensor.
-    mesh_shape: Optional[tuple] = None  # not ported yet
+    mesh_shape: Optional[tuple] = None  # batch detection words-sharded over
+    # a 'dp' mesh of prod(mesh_shape) ranks, one per device
+    # (parallel/decode.py::shard_words_decode); the by-word engine stays on
+    # one device.
     decode_overlap: int = 32  # warm-up overlap of the time-chunked detect
     eval_time_chunks: int = 0  # > 1: the ViterbiNet family's batch detect
     # runs over that many overlap-save time chunks (K4) where T divides and
@@ -111,11 +107,6 @@ class Config:
     weights_dir: Optional[str] = None
 
     def __post_init__(self):
-        for name, supported in _NOT_PORTED.items():
-            if getattr(self, name) != supported:
-                raise NotImplementedError(
-                    f"Config.{name}={getattr(self, name)!r} is not supported by "
-                    f"the PyTorch port yet (only {supported!r})")
         if self.dtype not in COMPUTE_DTYPES:
             raise ValueError(f"Config.dtype={self.dtype!r}: expected one of {COMPUTE_DTYPES}")
         if self.eval_time_chunks < 0:

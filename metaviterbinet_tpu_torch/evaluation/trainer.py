@@ -19,6 +19,10 @@ Protocol parity:
   - An aggregated eval runs as one sweep over its SNRs (`sweep_eval_fused`,
     trainer.py:203-226), on every device: every point's params are loaded
     (or trained on a miss) first, then the points are detected and decoded.
+  - With Config.mesh_shape, batch detection is words-sharded over a 'dp'
+    mesh of prod(mesh_shape) ranks (trainer.py:94-110 there): each rank
+    detects its rows and every rank gets all the bits, so every rank
+    returns the same SER. The by-word engine stays on one device.
 
 Randomness: `generator` (on the trainer's device) draws the params'
 initialisation, the decoder-CSI noise and the select_batch indices;
@@ -44,6 +48,8 @@ from metaviterbinet_tpu_torch.ecc.rs import rs_decode_bits, rs_encode_bits
 from metaviterbinet_tpu_torch.online.engine import Draws, OnlineResult, run_online
 from metaviterbinet_tpu_torch.ops.channel import estimate_channel_batch
 from metaviterbinet_tpu_torch.ops.metrics import error_rates
+from metaviterbinet_tpu_torch.parallel.decode import shard_words_decode
+from metaviterbinet_tpu_torch.parallel.mesh import init_distributed, make_mesh
 from metaviterbinet_tpu_torch.paths import WEIGHTS_DIR
 from metaviterbinet_tpu_torch.train.checkpoint import (
     load_checkpoint, save_config_provenance, save_params)
@@ -59,6 +65,10 @@ class Trainer:
                  weights_dir: Optional[str] = None, verbose: bool = True, metrics=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        if cfg.mesh_shape:
+            # before anything is allocated: on the card this sets the rank's
+            # device (LOCAL_RANK), which plain 'cuda' below then means
+            init_distributed(device=self.device)
         if self.device.type == "cuda":
             use_f32_matmuls()
         if isinstance(detector, str):
@@ -91,6 +101,10 @@ class Trainer:
         # entered around each online block's parts (online/engine.py::run_online)
         self.spans: Callable[[str], Any] = contextlib.nullcontext
         self.online_result: Optional[OnlineResult] = None
+        self._detect_batch = self.spec.detect
+        if cfg.mesh_shape:
+            mesh = make_mesh((int(np.prod(cfg.mesh_shape)),), ("dp",), device=self.device)
+            self._detect_batch = shard_words_decode(mesh, self.spec.detect)
 
     def _log(self, msg: str) -> None:
         if self.verbose:
@@ -124,7 +138,7 @@ class Trainer:
                   h: torch.Tensor) -> torch.Tensor:
         """Detect -> RS decode -> coded BER over the non-pilot words, all on
         the batch's device; returns the BER as a 0-d tensor."""
-        detected = self.spec.detect(params, rx, h)
+        detected = self._detect_batch(params, rx, h)
         if self.cfg.use_ecc:
             decoded, _ = rs_decode_bits(detected, self.cfg.n_symbols)
         else:
@@ -182,7 +196,7 @@ class Trainer:
         for snr, params in zip(snrs, params_per_snr):
             tx, rx = self.val_dataset.get(snr, cfg.gamma)
             h = self.decoder_csi(tx.shape[0])
-            detected.append(self.spec.detect(params, rx, h))
+            detected.append(self._detect_batch(params, rx, h))
             txs.append(tx)
         det_all = torch.cat(detected)
         dec_all = rs_decode_bits(det_all, cfg.n_symbols)[0] if cfg.use_ecc else det_all

@@ -73,6 +73,44 @@ def viterbi_decode(priors: torch.Tensor) -> torch.Tensor:
     return viterbi_decode_with_metrics(priors, in_prob0)[0]
 
 
+def viterbi_decode_lowlat(priors: torch.Tensor) -> torch.Tensor:
+    """Greedy zero-delay Viterbi decode as a (min,+) parallel prefix:
+    [batch, T, S] -> [batch, T] bits, the semantics of `viterbi_decode`.
+
+    Step t is the matrix M_t[p, s] = priors_t[p] where p is a predecessor
+    of s, else +inf. Their inclusive (min,+) prefix products C_t = M_1 ..
+    M_t take ceil(log2 T) rounds of one batched product each (Hillis-Steele
+    doubling), so the sequential depth is log T instead of T. The metrics
+    entering step t are m_0 = 0 and m_t = min_p C_t[p, :]; the bit is the
+    LSB of the first argmin.
+
+    This is the latency path, for one word or a few in flight: each round
+    materialises a [batch, T, S, S, S] float32 product, 16 KiB per word and
+    step at S = 16 (2.2 MB at 1 x 136, 668 MB at 300 x 136), and does S^2
+    times the work of `viterbi_decode`, which stays the throughput path.
+
+    On integer-valued metrics the bits equal `viterbi_decode`'s. On float
+    metrics the products add in another order than the sequential
+    recursion, so rare near-ties may resolve the other way."""
+    batch, T, n_states = priors.shape
+    # the predecessors of s are 2s and 2s + 1 mod S (transition_table), made
+    # on the device so that a CUDA graph can capture the whole decode
+    s = torch.arange(n_states, device=priors.device)
+    p, pred = s[:, None], (2 * s[None, :]) % n_states
+    mask = torch.full((n_states, n_states), float("inf"), dtype=priors.dtype,
+                      device=priors.device).masked_fill((p == pred) | (p == pred + 1), 0.0)
+    prefix = priors[..., None] + mask  # [batch, T, S, S]
+    step = 1
+    while step < T:
+        # prefix[t] <- prefix[t - step] (min,+) prefix[t], the earlier on the left
+        a, b = prefix[:, :-step], prefix[:, step:]
+        composed = (a[..., :, :, None] + b[..., None, :, :]).amin(dim=-2)
+        prefix = torch.cat([prefix[:, :step], composed], dim=1)
+        step *= 2
+    m = torch.cat([priors.new_zeros((batch, 1, n_states)), prefix[:, :-1].amin(dim=2)], dim=1)
+    return _first_argmin_lsb(m)
+
+
 def calculate_states(memory_length: int, words: torch.Tensor) -> torch.Tensor:
     """Per-time trellis state label of a bit word, for CE training targets.
 

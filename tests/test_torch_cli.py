@@ -91,8 +91,11 @@ def test_cli_evaluate_va_on_the_cpu(capsys):
 def test_cli_rejects_unknown_field_and_unported_commands():
     with pytest.raises(SystemExit):
         cli.main(["evaluate", "--detector", "va", "--device", "cpu", "--set", "nonsense=1"])
+    # bench is ported: it takes a device and nothing else
     with pytest.raises(SystemExit):
-        cli.main(["bench"])
+        cli.main(["bench", "--detector", "va"])
+    with pytest.raises(SystemExit):
+        cli.main(["bench", "--device", "tpu"])
     # sweep and taps take no detector (tests/test_torch_plotters.py runs them)
     for command in ("sweep", "taps"):
         with pytest.raises(SystemExit):
@@ -157,6 +160,39 @@ def test_cli_runs_on_the_card_by_default():
         pytest.skip("checks the behaviour without a CUDA card")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["evaluate", "--detector", "va", "--snr", "10"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["bench"])
+
+
+# ------------------------------------------------------------------ bench
+
+# the keys of the JSON line of the JAX package's bench.py (:204-220)
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "best", "worst", "spread_pct",
+              "methodology", "e2e_eval"}
+BENCH_METHODOLOGY_KEYS = {"stat", "repeats", "dispatches_per_sync", "batch_words", "sync"}
+
+
+def test_bench_on_the_cpu_reads_the_baseline_and_never_writes_it(capsys):
+    from metaviterbinet_tpu_torch import bench
+    cached = open(bench.BASELINE_CACHE, "rb").read()
+    line = bench.main(device="cpu", words=64, repeats=1, iters=1, ref_words=64, val_frames=1,
+                      e2e_repeats=1)
+    printed = capsys.readouterr().out.strip().splitlines()
+    assert printed[-2] == "cpu" and json.loads(printed[-1]) == line
+    assert BENCH_KEYS <= set(line) and BENCH_METHODOLOGY_KEYS <= set(line["methodology"])
+    assert line["value"] > 0 and line["methodology"]["batch_words"] == 64
+    assert line["cached_baseline_cpu"]["symbols_per_sec"] == json.loads(cached)["symbols_per_sec"]
+    assert line["e2e_eval"]["sweep"]["snr_points"] == 6
+    assert open(bench.BASELINE_CACHE, "rb").read() == cached
+
+
+def test_cli_bench_passes_its_device(monkeypatch):
+    from metaviterbinet_tpu_torch import bench
+    calls = []
+    monkeypatch.setattr(bench, "main", lambda **kw: calls.append(kw))
+    assert cli.main(["bench", "--device", "cpu"]) == 0
+    assert cli.main(["bench"]) == 0
+    assert calls == [{"device": "cpu"}, {"device": "cuda"}]
 
 
 # ------------------------------------------------------------------ utils

@@ -380,3 +380,69 @@ def test_lstm_online_step_launches_no_kernel(gen):
     assert result.n_gated == 3
     moved = lstm.param_dict(result.params)["w_hh0"]
     assert not torch.equal(moved, lstm.param_dict(model)["w_hh0"])
+
+
+# ------------------------------------------------------------ the parallel layer
+
+@pytest.fixture
+def no_group():
+    """A test that forms a process group leaves none behind."""
+    import torch.distributed as dist
+    yield
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def test_mesh_trainer_on_a_world_one_nccl_group(gen, no_group):
+    """Config.mesh_shape=(1,) on the card: a world-1 NCCL group, K2 per
+    point, and the mesh-less Trainer's coded BERs from the same seeds."""
+    import numpy as np
+    import torch.distributed as dist
+    from metaviterbinet_tpu_torch import Config
+    from metaviterbinet_tpu_torch.evaluation.trainer import Trainer
+    cfg = Config(val_frames=2, val_SNR_start=9.0, val_SNR_end=10.0)
+    chip_smoke.zero_launches()
+    mesh = Trainer(cfg.replace(mesh_shape=(1,)), "va", verbose=False).evaluate()
+    assert (dist.get_backend(), dist.get_world_size()) == ("nccl", 1)
+    assert chip_smoke.read_launches()["fused_va_detect"] == 2
+    np.testing.assert_array_equal(mesh, Trainer(cfg, "va", verbose=False).evaluate())
+
+
+@pytest.mark.parametrize("decode", ["sequence_parallel", "chunked"])
+def test_block_parallel_decodes_are_one_k5_launch(gen, no_group, decode):
+    """The sequence-parallel decode over a one-rank 'sp' axis and the chunked
+    decode: one K5 launch each, the sequential K5's bits on VA priors, and
+    the bits of the same decode through K5's plain version and of the plain
+    sequential decode."""
+    from metaviterbinet_tpu_torch.parallel.decode import (
+        chunked_decode_reference, sequence_parallel_decode)
+    from metaviterbinet_tpu_torch.parallel.mesh import make_mesh
+    priors = chip_smoke.va_long_priors(16, 1024, gen)
+    want = acs.viterbi_decode_kernel(priors)
+    assert torch.equal(want, acs.viterbi_decode_kernel_plain(priors))
+    mesh = make_mesh((1, 1))
+
+    def run():
+        if decode == "chunked":
+            return chunked_decode_reference(priors, 8, chip_smoke.OVERLAP)
+        return sequence_parallel_decode(mesh, chip_smoke.OVERLAP)(priors)
+
+    before = acs.viterbi_decode_kernel.launches
+    got = run()
+    assert acs.viterbi_decode_kernel.launches == before + 1
+    assert torch.equal(got, want)
+    with chip_smoke.k5_plain_in_decode():
+        assert torch.equal(run(), got)
+    assert acs.viterbi_decode_kernel.launches == before + 1
+
+
+@pytest.mark.parametrize("W,T", [(8, 37), (1, 136)])
+def test_lowlat_decode_equals_k5(gen, W, T):
+    """viterbi_decode_lowlat on the card: K5's bits on integer priors at
+    W x T, and at least 0.999 of them on float priors at 16 x 136."""
+    from metaviterbinet_tpu_torch.ops.trellis import viterbi_decode_lowlat
+    ints = torch.randint(0, 12, (W, T, 16), generator=gen, device="cuda").float()
+    assert torch.equal(viterbi_decode_lowlat(ints), acs.viterbi_decode_kernel(ints))
+    floats = torch.randn((16, 136, 16), generator=gen, device="cuda") ** 2
+    agree = (viterbi_decode_lowlat(floats) == acs.viterbi_decode_kernel(floats)).float().mean()
+    assert float(agree) >= chip_smoke.LOWLAT_AGREEMENT

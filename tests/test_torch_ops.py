@@ -53,8 +53,21 @@ def test_config_yaml_layering():
 
 @pytest.mark.parametrize("field,value", [("mesh_shape", (8,))])
 def test_config_unported_mechanisms_raise(field, value):
-    with pytest.raises(NotImplementedError, match=field):
-        tconfig.Config(**{field: value})
+    """Config.mesh_shape is ported: the Config takes it, and a Trainer built
+    from it raises where the running world (one process here) cannot form
+    the mesh, instead of detecting on fewer devices."""
+    import torch.distributed as dist
+
+    from metaviterbinet_tpu_torch.evaluation.trainer import Trainer
+
+    cfg = tconfig.Config(**{field: value})
+    assert getattr(cfg, field) == value
+    try:
+        with pytest.raises(ValueError, match="needs 8 devices, have 1"):
+            Trainer(cfg, "va", device="cpu", verbose=False)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("field,value", [("eval_time_chunks", 4), ("dtype", "bfloat16")])
@@ -139,6 +152,31 @@ def test_viterbi_readout_breaks_exact_ties_like_jax():
     assert got[0, 1] == 1.0
     zeros = np.zeros((4, 6, S), np.float32)  # every state tied: bit of state 0
     assert (ttrellis.viterbi_decode(torch.tensor(zeros)).numpy() == 0).all()
+
+
+# JAX's viterbi_decode_lowlat as one XLA program: unjitted, its scan's ops
+# compile one by one, about 5 s more per shape on the CPU
+j_lowlat = jax.jit(jtrellis.viterbi_decode_lowlat)
+
+
+def test_lowlat_decode_exact_on_integer_metrics():
+    """The (min,+) prefix decode against the port's sequential decode and
+    JAX's viterbi_decode_lowlat (tests/test_trellis.py's inputs): equal
+    bits where the metrics are exactly representable."""
+    priors = np.random.default_rng(0).integers(0, 12, size=(8, 37, 16)).astype(np.float32)
+    got = ttrellis.viterbi_decode_lowlat(torch.tensor(priors)).numpy()
+    np.testing.assert_array_equal(got, ttrellis.viterbi_decode(torch.tensor(priors)).numpy())
+    np.testing.assert_array_equal(got, np.asarray(j_lowlat(jnp.asarray(priors))))
+
+
+def test_lowlat_decode_agrees_on_float_metrics():
+    """On float metrics the products add in another order than either
+    sequential recursion or lax.associative_scan: at least 0.999 of the
+    bits equal to both (JAX's own contract)."""
+    priors = np.random.default_rng(1).normal(size=(16, 136, 16)).astype(np.float32) ** 2
+    got = ttrellis.viterbi_decode_lowlat(torch.tensor(priors)).numpy()
+    assert (got == ttrellis.viterbi_decode(torch.tensor(priors)).numpy()).mean() >= 0.999
+    assert (got == np.asarray(j_lowlat(jnp.asarray(priors)))).mean() >= 0.999
 
 
 @pytest.mark.parametrize("L", [2, 4])

@@ -109,15 +109,14 @@ def test_flat_reader_reads_yaml_11_scalars_as_pyyaml_does(tmp_path):
 
 def test_jax_provenance_with_a_mesh_reads_as_a_tuple_and_raises(tmp_path):
     """The JAX package writes a set mesh_shape as a block sequence; the reader
-    returns the tuple, and the port's Config raises NotImplementedError for
-    it (not a parse error)."""
+    returns the tuple, and the port's Config takes it (the mesh is built by
+    the Trainer, which raises where the world cannot form it)."""
     path = jcheckpoint.save_config_provenance(str(tmp_path), jconfig.Config(mesh_shape=(2,)))
     assert "mesh_shape:\n- 2\n" in open(path).read()
     got = _read(path)
     _same(got, _yaml(path))
     assert got["mesh_shape"] == (2,)
-    with pytest.raises(NotImplementedError, match="mesh_shape"):
-        load_config(path)
+    assert load_config(path) == Config(mesh_shape=(2,))
 
 
 @pytest.mark.parametrize("text,line", [

@@ -19,11 +19,12 @@ from metaviterbinet_tpu.models import lstm as jlstm
 from metaviterbinet_tpu.models import viterbinet as jvnet
 from metaviterbinet_tpu.ops.channel import estimate_channel_batch as j_taps
 from metaviterbinet_tpu.ops.metrics import error_rates as j_error_rates
-from metaviterbinet_tpu_torch import Config
+from metaviterbinet_tpu_torch import Config, bench
 from metaviterbinet_tpu_torch.data import dataset as tdataset
 from metaviterbinet_tpu_torch.evaluation.trainer import Trainer
 from metaviterbinet_tpu_torch.models import lstm as tlstm
 from metaviterbinet_tpu_torch.models import viterbinet as tvnet
+from metaviterbinet_tpu_torch.parallel.mesh import init_distributed, make_mesh
 from metaviterbinet_tpu_torch.paths import RESOURCES_DIR, ROOT_DIR
 from metaviterbinet_tpu_torch.weights import adam_state_from_jax, params_from_jax
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
@@ -221,6 +222,15 @@ def test_entry_points_default_to_the_card():
         params_from_jax(lstm_params)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tlstm.from_params(lstm_params)
+    # the parallel layer and the bench
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_distributed()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(cfg.replace(mesh_shape=(1,)), "va")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bench.main(device="cuda")
 
 
 def test_port_imports_nothing_of_jax(tmp_path):
@@ -228,8 +238,10 @@ def test_port_imports_nothing_of_jax(tmp_path):
     JAX package cannot be imported (the port depends on none of them):
     every module of the port and chip_smoke.py import, and the readers run: load_config on the port's config.yaml, on
     a provenance the port writes and on the JAX package's (a mesh_shape
-    raises NotImplementedError), and load_checkpoint on the JAX package's
-    ViterbiNet and LSTM checkpoints."""
+    reads as a tuple), and load_checkpoint on the JAX package's ViterbiNet
+    and LSTM checkpoints; the parallel layer runs on a world-1 gloo group
+    (the words-sharded detect, the sequence-parallel and chunked decodes,
+    the data-parallel step), and so does the bench at a tiny size."""
     from metaviterbinet_tpu import config as jconfig
     from metaviterbinet_tpu.train import checkpoint as jcheckpoint
     from metaviterbinet_tpu_torch.train.checkpoint import save_config_provenance
@@ -259,18 +271,46 @@ def test_port_imports_nothing_of_jax(tmp_path):
         "assert load_config(CONFIG_PATH) == Config()\n"
         "assert load_config(root + '/port/config.yaml') == Config(eval_mode='by_word')\n"
         "assert load_config(root + '/jax/config.yaml') == Config(lr=1e-5, val_frames=3)\n"
-        "try:\n"
-        "    load_config(root + '/mesh/config.yaml')\n"
-        "    raise SystemExit('mesh_shape did not raise')\n"
-        "except NotImplementedError:\n"
-        "    pass\n"
+        "assert load_config(root + '/mesh/config.yaml') == Config(mesh_shape=(2,))\n"
         "for name, key in (('vnet', 'w2'), ('lstm', 'w_hh1')):\n"
         "    ckpt = load_checkpoint(f'{root}/{name}', 10.0, 0.2, 'cpu')\n"
         "    assert key in ckpt['params'] and ckpt['loss'] == 0.5, ckpt\n"
+        "import torch\n"
+        "from metaviterbinet_tpu_torch import bench\n"
+        "from metaviterbinet_tpu_torch.detectors import DETECTORS\n"
+        "from metaviterbinet_tpu_torch.models import viterbinet\n"
+        "from metaviterbinet_tpu_torch.ops.trellis import viterbi_decode, viterbi_decode_lowlat\n"
+        "from metaviterbinet_tpu_torch.parallel import (\n"
+        "    make_dp_train_step, make_mesh, sequence_parallel_decode, shard_words_decode)\n"
+        "from metaviterbinet_tpu_torch.parallel.decode import chunked_decode_reference\n"
+        "from metaviterbinet_tpu_torch.train.losses import make_loss_fn\n"
+        "from metaviterbinet_tpu_torch.train.optim import Optimizer\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "y, h = torch.randn(3, 40, generator=g), torch.rand(3, 4, generator=g)\n"
+        "run = shard_words_decode(make_mesh(device='cpu'), DETECTORS['va'].detect)\n"
+        "assert torch.equal(run(None, y, h), DETECTORS['va'].detect(None, y, h))\n"
+        "p = torch.randn(2, 128, 16, generator=g) ** 2\n"
+        "seq = viterbi_decode(p)\n"
+        "sp = sequence_parallel_decode(make_mesh((1, 1), device='cpu'), 32)\n"
+        "assert torch.equal(sp(p), seq)\n"
+        "assert chunked_decode_reference(p, 2, 32).shape == seq.shape\n"
+        "assert (viterbi_decode_lowlat(p) == seq).float().mean() > 0.99\n"
+        "params = viterbinet.param_dict(viterbinet.init_params(16, g, device='cpu'))\n"
+        "opt = Optimizer('SGD', 0.1)\n"
+        "step = make_dp_train_step(make_mesh(device='cpu'),\n"
+        "                          make_loss_fn(viterbinet.logits, 'states', 4, False), opt)\n"
+        "tx = torch.randint(0, 2, (2, 40), generator=g).float()\n"
+        "assert torch.isfinite(step(params, opt.init(params), y[:2], tx)[2])\n"
+        "line = bench.main(device='cpu', words=8, repeats=1, iters=1, ref_words=8,\n"
+        "                  val_frames=1, e2e_repeats=1)\n"
+        "assert line['value'] > 0, line\n"
         "print(len(names))\n")
-    env = dict(os.environ, PYTHONPATH=ROOT_DIR)
+    # one torch thread, as the parallel workers run: the xdist workers
+    # share the same cores
+    env = dict(os.environ, PYTHONPATH=ROOT_DIR, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=ROOT_DIR, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    # 37 modules before the experiment harness (plotters/: 5; train/msgpack.py)
-    assert int(proc.stdout.split()[-1]) >= 43
+    # 37 modules before the experiment harness (plotters/: 5; train/msgpack.py),
+    # 43 before the parallel layer (parallel/: 4) and the bench
+    assert int(proc.stdout.split()[-1]) >= 48
