@@ -48,9 +48,14 @@ Phases, each of which fails the run on error:
               mode (K2 per block, nothing trained), each against its
               recorded reference band; launch counts, buffer fill, seconds of
               train-on-miss, of the 300 blocks and of their parts (CUDA
-              events), and the device's idle share (torch.profiler, a
-              second run over PROFILED_BLOCKS blocks); then the first 25
-              meta-mode blocks once on the card and once on the CPU;
+              events), the graphed steps' calls (warm-up, capture, replay)
+              and milliseconds a step, and the device's idle share
+              (torch.profiler, a second run over PROFILED_BLOCKS blocks);
+              then the first 25 blocks of meta_vnet and vnet online graphed
+              against the same steps with capture patched out (no_capture:
+              per-block SERs equal, the same launches, the final params'
+              largest difference printed), and meta_vnet's once more on the
+              CPU;
   5b. lstm    the LSTM family (2 x 256 LSTM, window 4), which has no kernel,
               in two processes of its own started after phase 4 and run
               beside phases 5-7 (see start_beside); no path of it may
@@ -61,13 +66,14 @@ Phases, each of which fails the run on error:
               25 minibatches) and lstm online (self-supervised autograd
               steps, the same checkpoint) over 300 blocks against their
               reference bands, each also under the profiler
-              (PROFILED_BLOCKS); cuDNN's forward against the unrolled one
+              (PROFILED_BLOCKS), and lstm online's first 25 blocks graphed
+              against uncaptured; cuDNN's forward against the unrolled one
               with the trained params (bits equal outside a margin of
               1e-4). In the other: meta_lstm's meta_train on the miss (25
-              minibatches) and the first 6 blocks of its meta run, through
-              the first meta event (second-order MAML steps), on the card
-              and on the CPU, with the seconds per step and an estimate of a
-              300-block run. Their output is printed after phase 7b;
+              minibatches, graphed MAML steps) and the first 6 blocks of its
+              meta run, through the first meta event (second-order MAML
+              steps), graphed and uncaptured on the card and on the CPU.
+              Their output is printed after phase 7b;
   5c. sweep   the experiment harness (plotters/experiments.py) at the
               protocol's full width, in a third process of its own beside
               phases 5-7 (see start_beside), printed after phase 7b:
@@ -103,6 +109,14 @@ Phases, each of which fails the run on error:
               and at least 0.999 equal on float priors; one
               make_dp_train_step SGD step within 1e-6 of the step with no
               collective;
+  7c. steps   alone on the card after the wait: each graphed step of the
+              by-word engine (STEP_KINDS: the vnet and lstm self-supervised
+              steps, the meta_vnet and meta_lstm second-order MAML steps) at
+              T = 136, eager (capture patched out) and replayed, in ms a
+              step, and one of each under torch.profiler (device activities
+              and busy time); from them an estimate of a 300-block meta_lstm
+              run (the full run goes through the CLI, in a call of its own:
+              it would take the script past its time budget);
   8. width    time the kernels and their plain versions on the device (a CUDA
               graph of back-to-back calls) and per eager call: K1 and K2 at
               300 x 136 and 65536 x 136, K2 at 1 x 136, K4 at 300 x 136 with
@@ -150,7 +164,11 @@ from metaviterbinet_tpu_torch.ecc.rs import rs_encode_bits
 from metaviterbinet_tpu_torch.evaluation.trainer import Trainer
 from metaviterbinet_tpu_torch.kernels import acs, online_sgd
 from metaviterbinet_tpu_torch.models import lstm, va, viterbinet
-from metaviterbinet_tpu_torch.online.engine import Draws, run_online, uses_fused_adaptation
+from metaviterbinet_tpu_torch.detectors import DETECTORS
+from metaviterbinet_tpu_torch.online import graphs
+from metaviterbinet_tpu_torch.online.engine import (
+    Draws, make_self_supervised_step, run_online, uses_fused_adaptation)
+from metaviterbinet_tpu_torch.online.graphs import GraphedStep, device_rows
 from metaviterbinet_tpu_torch.ops.trellis import calculate_states, viterbi_decode_lowlat
 from metaviterbinet_tpu_torch.parallel import decode as parallel_decode
 from metaviterbinet_tpu_torch.parallel.decode import (
@@ -162,6 +180,7 @@ from metaviterbinet_tpu_torch.plotters import cache, experiments
 from metaviterbinet_tpu_torch.train.checkpoint import ckpt_path
 from metaviterbinet_tpu_torch.train.losses import make_loss_fn, select_batch
 from metaviterbinet_tpu_torch.train.loop import word_sweep
+from metaviterbinet_tpu_torch.train.meta import make_maml_step
 from metaviterbinet_tpu_torch.train.optim import ADAM_B1, ADAM_B2, ADAM_EPS, Optimizer
 
 SEED = 20260
@@ -962,11 +981,13 @@ def run_by_word(name: str, mode: str, weights_dir: str, band: tuple) -> dict:
     spans = CudaSpans()
     trainer.spans = spans
     zero_launches()
+    zero_steps()
     t0 = time.perf_counter()
     sers = trainer.evaluate()
     torch.cuda.synchronize()
     blocks_s = time.perf_counter() - t0
     launches = read_launches()
+    steps = read_steps()
     result = trainer.online_result
     parts = spans.seconds()
     mean_ber = float(np.mean(sers[di]))
@@ -974,6 +995,7 @@ def run_by_word(name: str, mode: str, weights_dir: str, band: tuple) -> dict:
           f"300 blocks {blocks_s:.3f} s; parts (count, s on the device timeline from CUDA "
           f"events, s on the host clock): "
           f"{parts}")
+    print(f"{name} {mode} mode: graphed steps {steps_line(steps, parts)}")
     print(f"{name} {mode} mode: buffer fill {result.n_buffer}, {result.n_gated} gated blocks, "
           f"by-word launches {launches}")
     print(f"{name} {mode} mode: mean coded BER over the {len(di)} data blocks at 10 dB "
@@ -1002,7 +1024,7 @@ def run_by_word(name: str, mode: str, weights_dir: str, band: tuple) -> dict:
     return {"cfg": cfg, "trainer": trainer, "sers": sers, "mean_data_ber": mean_ber,
             "train_s": train_s, "blocks_s": blocks_s, "parts": parts, "launches": launches,
             "train_launches": train_launches, "n_buffer": result.n_buffer,
-            "n_gated": result.n_gated}
+            "n_gated": result.n_gated, "steps": steps}
 
 
 def profiled_blocks(cell: str, name: str, cfg: Config, weights_dir: str | None = None) -> dict:
@@ -1022,7 +1044,275 @@ def profiled_blocks(cell: str, name: str, cfg: Config, weights_dir: str | None =
     return dict(busy, blocks=n)
 
 
-def phase_online(weights_dir: str) -> dict:
+# ------------------------------------------------------- the graphed steps
+
+def no_capture():
+    """The by-word engine's steps called directly on the card, as on the
+    CPU, with no graph captured or replayed: the same step functions and
+    inputs (online/graphs.py)."""
+    return mock.patch.object(graphs, "replays_on", lambda device: False)
+
+
+def zero_steps() -> None:
+    GraphedStep.counts.clear()
+
+
+def read_steps() -> dict:
+    """name -> {kind: calls} of the graphed steps since zero_steps()."""
+    return copy.deepcopy(GraphedStep.counts)
+
+
+# the engine's graphed steps, each by its detector family: the
+# self-supervised step of vnet online (subsampled CE over states) and lstm
+# online (subsampled CE over bits, cuDNN), and the MAML pair step of
+# meta_vnet and meta_lstm (the unrolled forward)
+STEP_KINDS = ("vnet self-supervised", "lstm self-supervised", "meta_vnet maml", "meta_lstm maml")
+# steps timed per kind: eager, and replayed
+STEP_TIMED = {"vnet self-supervised": (100, 400), "lstm self-supervised": (50, 200),
+              "meta_vnet maml": (20, 100), "meta_lstm maml": (3, 20)}
+# how far WARMUP_STEPS + 4 steps replayed may leave the params and moments
+# from the same steps called directly (step_run), 0 where not listed.
+# meta_lstm's second-order step is not bit-reproducible on the card from
+# one set of fresh tensors to the next, eagerly too: its unrolled double
+# backward leaves results that depend on where its tensors lie (phase 7c
+# prints two eager runs apart), and a graph's tensors lie in its own pool
+STEP_TOL = {("meta_lstm maml", True): 1e-6}
+
+
+def step_case(kind: str, gen: torch.Generator, n_steps: int, second_order: bool = True):
+    """One of STEP_KINDS at the protocol's shapes (T = 136, Config's
+    train_minibatch_size and window_size) with seeded random params and
+    inputs on the card, as the engine builds it: returns (params,
+    opt_state, run), where run(i) takes step i < n_steps on its own word
+    (and its own select_batch draw)."""
+    cfg = Config()
+    family, what = kind.split(" ", 1)
+    spec = DETECTORS[family]
+    params = spec.model.param_dict(spec.init(cfg, gen, "cuda"))
+    opt = Optimizer("Adam", cfg.lr)
+    state = opt.init(params)
+    w = cfg.window_size
+    rx = torch.randn((n_steps + w, T_PROTO), generator=gen, device="cuda")
+    tx = torch.randint(0, 2, (n_steps + w, T_PROTO), generator=gen, device="cuda").float()
+    if what == "self-supervised":
+        loss_fn = make_loss_fn(spec.score, spec.label_kind, cfg.memory_length,
+                               spec.subsample_loss, cfg.loss_type)
+        step = make_self_supervised_step(loss_fn, opt)
+        idx = torch.stack([select_batch(T_PROTO, cfg.train_minibatch_size, gen, "cuda")
+                           for _ in range(n_steps)])
+        bc = device_rows(opt.advance(state, n_steps), torch.device("cuda"))
+
+        def run(i: int) -> None:
+            step(params, state, rx[i:i + 1], tx[i:i + 1], idx[i], bc[i])
+    else:
+        loss_fn = make_loss_fn(spec.meta_score, spec.label_kind, cfg.memory_length, False,
+                               cfg.loss_type)
+        maml = make_maml_step(loss_fn, opt, cfg.meta_lr, second_order)
+
+        def run(i: int) -> None:
+            maml(params, state, rx[i:i + w], tx[i:i + w], rx[i + w:i + w + 1],
+                 tx[i + w:i + w + 1])
+    return params, state, run
+
+
+def _steps_s(run, first: int, n: int) -> float:
+    """Seconds per step of run(first) .. run(first + n - 1), host clock
+    to a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(first, first + n):
+        run(i)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n
+
+
+def step_run(kind: str, captured: bool, second_order: bool = True) -> tuple[list, dict]:
+    """WARMUP_STEPS + 4 steps of step_case(kind) from a fixed seed, replayed
+    (captured) or called directly: the params and moments after them, and
+    the calls by kind."""
+    n = graphs.WARMUP_STEPS + 4
+    zero_steps()
+    with contextlib.nullcontext() if captured else no_capture():
+        params, state, run = step_case(kind, torch.Generator(device="cuda").manual_seed(7), n,
+                                       second_order)
+        for i in range(n):
+            run(i)
+    torch.cuda.synchronize()
+    (calls,) = read_steps().values()
+    return [t.detach().clone() for group in (params, state.mu, state.nu)
+            for t in group.values()], calls
+
+
+def tensors_apart(a: list, b: list) -> float:
+    return max(float((x - y).detach().abs().max()) for x, y in zip(a, b))
+
+
+def phase_steps(card: str) -> dict:
+    """Each of STEP_KINDS eager (capture patched out) and replayed, in one
+    process: seconds per step (host clock, after the warm-up), and one step
+    of each under torch.profiler, its device activities and busy time (the
+    floor a graph can reach). A replayed step launches its activities with
+    no host work between them."""
+    out = {}
+    for kind in STEP_KINDS:
+        n_eager, n_graphed = STEP_TIMED[kind]
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        warm = graphs.WARMUP_STEPS + 1
+        with no_capture():
+            _, _, run = step_case(kind, gen, warm + n_eager + 1)
+            for i in range(warm):
+                run(i)
+            eager_s = _steps_s(run, warm, n_eager)
+            eager_busy = device_busy(lambda: run(warm + n_eager))
+        zero_steps()
+        _, _, run = step_case(kind, gen, warm + n_graphed + 1)
+        t0 = time.perf_counter()
+        for i in range(warm):  # the warm-up steps, the capture and its replay
+            run(i)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        graphed_s = _steps_s(run, warm, n_graphed)
+        graphed_busy = device_busy(lambda: run(warm + n_graphed))
+        counts = read_steps()
+        print(f"{kind} step at T = {T_PROTO}: eager {1e3 * eager_s:.3f} ms a step over "
+              f"{n_eager} steps, replayed {1e3 * graphed_s:.3f} ms a step over {n_graphed} "
+              f"({eager_s / graphed_s:.2f}x); the {graphs.WARMUP_STEPS} warm-up steps, the "
+              f"capture and its replay {first_s:.3f} s; calls {counts} [{card}]")
+        print(busy_line(f"{kind}: one eager step", eager_busy))
+        print(busy_line(f"{kind}: one replay", graphed_busy))
+        # replayed against called directly, and two direct runs on fresh
+        # tensors against each other
+        (direct, _), (again, _), (replayed, _) = (step_run(kind, captured)
+                                                  for captured in (False, False, True))
+        apart = {"replayed_vs_direct": tensors_apart(replayed, direct),
+                 "direct_vs_direct": tensors_apart(again, direct)}
+        tol = STEP_TOL.get((kind, True), 0.0)
+        print(f"{kind}: after {graphs.WARMUP_STEPS + 4} steps the params and moments replayed "
+              f"are {apart['replayed_vs_direct']:.3e} from the same steps called directly "
+              f"(limit {tol:g}), two direct runs {apart['direct_vs_direct']:.3e} apart")
+        if max(apart.values()) > tol:
+            fail(f"{kind}: replayed and direct steps apart beyond {tol:g}: {apart}")
+        out[kind] = {"eager_s": eager_s, "graphed_s": graphed_s, "first_s": first_s,
+                     "eager_busy": eager_busy, "graphed_busy": graphed_busy, "calls": counts,
+                     **apart}
+    return out
+
+
+# the engine's spans that hold each graphed step's calls
+STEP_SPANS = {"self_supervised": "adapt", "maml": "meta"}
+
+
+def steps_line(steps: dict, parts: dict | None) -> str:
+    """The graphed steps' calls by name and kind and, where the run's
+    spans were timed, the milliseconds per step of the span that holds
+    them, on the device timeline (CUDA events) and on the host clock (its
+    warm-up steps and capture included; a replay returns before its work
+    is done)."""
+    out = []
+    for name, calls in sorted(steps.items()):
+        n = sum(calls.values()) - calls["capture"]
+        per = ""
+        if parts and STEP_SPANS[name] in parts and n:
+            _, device_s, host_s = parts[STEP_SPANS[name]]
+            per = (f", {1e3 * device_s / n:.3f} ms a step on the device, "
+                   f"{1e3 * host_s / n:.3f} on the host")
+        out.append(f"{name} {n} steps {calls}{per}")
+    return "; ".join(out) or "none"
+
+
+def first_blocks(name: str, cfg: Config, n: int, ways=("graphed", "uncaptured"),
+                 trainer: Trainer | None = None) -> dict:
+    """The first n blocks of a by-word run of detector `name` from the
+    run's checkpoint, on the next val batch of `trainer` (else of a fresh
+    Trainer of cfg), with the same blocks and draws (generators seeded
+    SEED) for each of `ways`: "graphed" on the card, "uncaptured" on the
+    card with capture patched out (no_capture), "cpu" through the CPU's
+    plain path ("graphed again" and "uncaptured again" repeat a way). Per
+    way: seconds, SER per block, final params, MAML steps, graphed-step
+    calls, launches and (on the card) the spans' seconds."""
+    snr = float(cfg.snr_range("val")[0])
+    trainer = trainer or Trainer(cfg, name, verbose=False)
+    params = trainer.load_weights(snr, cfg.gamma)
+    tx, rx = trainer.val_dataset.get(snr, cfg.gamma)
+    h = trainer.decoder_csi(tx.shape[0])
+    runs = {}
+    for way in ways:
+        device = "cpu" if way == "cpu" else "cuda"
+        captured = way.startswith("graphed")
+        draws = CountingDraws(cfg, trainer.spec, torch.device(device),
+                              torch.Generator(device=device).manual_seed(SEED),
+                              torch.Generator().manual_seed(SEED))
+        spans = CudaSpans() if device == "cuda" else contextlib.nullcontext
+        zero_launches()
+        zero_steps()
+        with contextlib.nullcontext() if captured or device == "cpu" else no_capture():
+            t0 = time.perf_counter()
+            result = run_online(cfg, trainer.spec,
+                                copy.deepcopy(params).cpu() if device == "cpu" else params,
+                                tx[:n].to(device), rx[:n].to(device), h[:n].to(device), draws,
+                                spans=spans)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        runs[way] = {"s": seconds, "sers": result.ser_by_word, "n_gated": result.n_gated,
+                     "params": trainer.spec.model.param_dict(result.params),
+                     "maml_steps": draws.maml_steps, "steps": read_steps(),
+                     "launches": read_launches(),
+                     "parts": spans.seconds() if device == "cuda" else None}
+        print(f"{name} first {n} blocks, {way}: {seconds:.2f} s, {result.n_gated} gated, "
+              f"{draws.maml_steps} MAML steps; graphed steps "
+              f"{steps_line(runs[way]['steps'], runs[way]['parts'])}")
+    return runs
+
+
+def _params_diff(a: dict, b: dict) -> float:
+    return tensors_apart(list(a["params"].values()), list(b["params"].values()))
+
+
+def held_graphed(cell: str, runs: dict, card: str) -> dict:
+    """The graphed run against the uncaptured one of first_blocks: SER per
+    block equal, the same launches; prints the final params' largest
+    difference and the seconds of each, and where a way ran twice, its two
+    runs' largest difference (whether the way is deterministic)."""
+    g, u = runs["graphed"], runs["uncaptured"]
+    diff = _params_diff(g, u)
+    again = {way: _params_diff(runs[way], runs[f"{way} again"])
+             for way in ("graphed", "uncaptured") if f"{way} again" in runs}
+    if again:
+        print(f"{cell}: final params max |diff| between two runs of the same way {again}")
+    n = len(g["sers"])
+    print(f"{cell} first {n} blocks, graphed against uncaptured: SER per block equal "
+          f"{bool(np.array_equal(g['sers'], u['sers']))}, final params max |diff| {diff:.3e}, "
+          f"launches {g['launches']} and {u['launches']}; {g['s']:.2f} s against {u['s']:.2f} "
+          f"s [{card}]")
+    if not np.array_equal(g["sers"], u["sers"]):
+        fail(f"{cell}: the graphed steps and the same steps uncaptured give other SERs: "
+             f"{g['sers'].tolist()} against {u['sers'].tolist()}")
+    if g["launches"] != u["launches"]:
+        fail(f"{cell}: the graphed run launched {g['launches']}, uncaptured {u['launches']}")
+    return {"blocks": n, "params_max_abs_diff": diff, "again_max_abs_diff": again,
+            "graphed_s": g["s"], "uncaptured_s": u["s"],
+            "steps": g["steps"], "uncaptured_steps": u["steps"], "maml_steps": g["maml_steps"],
+            "parts": g["parts"], "uncaptured_parts": u["parts"]}
+
+
+def meta_lstm_estimate(steps: dict, card: str) -> dict:
+    """An estimate, not a measurement, of a 300-block meta_lstm run from
+    phase_steps' replayed steps: at most META_EVENTS x MAX_STEPS_PER_EVENT
+    MAML steps, and at most 200 self-supervised steps on each of the 300
+    blocks (an lstm self-supervised step on the whole word costs about as
+    much as on its subsample)."""
+    maml_s = META_EVENTS * MAX_STEPS_PER_EVENT * steps["meta_lstm maml"]["graphed_s"]
+    ss_s = 300 * K6_ITERS * steps["lstm self-supervised"]["graphed_s"]
+    print(f"meta_lstm, estimate, not a measurement: a 300-block meta run takes at most "
+          f"{META_EVENTS} events x {MAX_STEPS_PER_EVENT} MAML steps x "
+          f"{steps['meta_lstm maml']['graphed_s']:.4f} s = {maml_s:.0f} s and 300 blocks x "
+          f"{K6_ITERS} self-supervised steps x {steps['lstm self-supervised']['graphed_s']:.5f} "
+          f"s = {ss_s:.0f} s, replayed [{card}]")
+    return {"maml_s": maml_s, "self_supervised_s": ss_s}
+
+
+def phase_online(weights_dir: str, card: str) -> dict:
     out = {}
     meta = run_by_word("meta_vnet", "meta", f"{weights_dir}/meta_vnet", META_VNET_BAND)
     joint = run_by_word("vnet", "joint", f"{weights_dir}/vnet", VNET_JOINT_BAND)
@@ -1036,23 +1326,16 @@ def phase_online(weights_dir: str) -> dict:
                             ("vnet online", "vnet", vnet_online), ("va", "va", va_joint)):
         run["busy"] = profiled_blocks(cell, name, run["cfg"])
 
-    # the first 25 meta-mode blocks on the card and through the CPU plain
-    # path, from the same params, blocks and draws
-    cfg = meta["cfg"]
-    card_t = Trainer(cfg, "meta_vnet", verbose=False)
-    params = card_t.load_weights(10.0, cfg.gamma)
-    tx, rx = card_t.val_dataset.get(10.0, cfg.gamma)
-    h = card_t.decoder_csi(tx.shape[0])
+    # the first 25 blocks of the cells that adapt: graphed against the same
+    # steps uncaptured, and meta_vnet's also through the CPU plain path,
+    # from the same params, blocks and draws
     n = CARD_CPU_BLOCKS
-    sers = {}
-    for device, p in (("cuda", params), ("cpu", copy.deepcopy(params).cpu())):
-        draws = Draws(cfg, card_t.spec, torch.device(device),
-                      torch.Generator(device=device).manual_seed(SEED),
-                      torch.Generator().manual_seed(SEED))
-        t0 = time.perf_counter()
-        sers[device] = run_online(cfg, card_t.spec, p, tx[:n].to(device), rx[:n].to(device),
-                                  h[:n].to(device), draws).ser_by_word
-        print(f"meta_vnet first {n} blocks on {device}: {time.perf_counter() - t0:.2f} s")
+    first = first_blocks("meta_vnet", meta["cfg"], n, ("graphed", "uncaptured", "cpu"))
+    meta["graphed_vs_uncaptured"] = held_graphed("meta_vnet", first, card)
+    vnet_online["graphed_vs_uncaptured"] = held_graphed(
+        "vnet online", first_blocks("vnet", vnet_online["cfg"], n), card)
+    sers = {"cuda": first["graphed"]["sers"], "cpu": first["cpu"]["sers"]}
+    cfg = meta["cfg"]
     di = np.arange(n)[np.arange(n) % cfg.subframes_in_frame != 0]
     block_diff = float(np.abs(sers["cuda"] - sers["cpu"]).max())
     mean_diff = abs(float(sers["cuda"][di].mean()) - float(sers["cpu"][di].mean()))
@@ -1313,6 +1596,9 @@ def lstm_cells(weights_dir: str, card: str) -> dict:
         run = run_by_word("lstm", mode, f"{weights_dir}/lstm", band)
         out[key] = {k: v for k, v in run.items() if k not in ("cfg", "trainer", "sers")}
         out[key]["busy"] = profiled_blocks(f"lstm {mode}", "lstm", run["cfg"])
+    out["lstm_online"]["graphed_vs_uncaptured"] = held_graphed(
+        "lstm online", first_blocks("lstm", online_cfg("online", f"{weights_dir}/lstm"),
+                                    CARD_CPU_BLOCKS), card)
     # the two forwards with the trained params, on the card
     trained = Trainer(online_cfg("joint", f"{weights_dir}/lstm"), "lstm", verbose=False)
     p = lstm.param_dict(trained.load_weights(10.0, cfg.gamma))
@@ -1330,64 +1616,43 @@ def lstm_cells(weights_dir: str, card: str) -> dict:
 def meta_lstm_cell(weights_dir: str, card: str) -> dict:
     """meta_lstm in `weights_dir`: meta_train on the miss, then the first
     META_LSTM_BLOCKS blocks of the by-word meta run, through its first meta
-    event, on the card and on the CPU; the seconds per second-order MAML step and an
-    estimate of a 300-block run. Runs in a process of its own (see
-    start_beside)."""
+    event, graphed and uncaptured on the card and on the CPU. Runs in a
+    process of its own (see start_beside)."""
     mcfg = online_cfg("meta", weights_dir)
     mtrainer = Trainer(mcfg, "meta_lstm", verbose=False)
     zero_launches()
+    zero_steps()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    params = mtrainer.load_weights(10.0, mcfg.gamma)
+    mtrainer.load_weights(10.0, mcfg.gamma)
     torch.cuda.synchronize()
     meta_train_s = time.perf_counter() - t0
+    meta_train_steps = read_steps()
     no_launches("meta_lstm meta_train", read_launches())
-    tx, rx = mtrainer.val_dataset.get(10.0, mcfg.gamma)
-    h = mtrainer.decoder_csi(tx.shape[0])
+    print(f"meta_lstm meta_train on the miss: {meta_train_s:.2f} s for "
+          f"{mcfg.train_minibatch_num} minibatches; graphed steps "
+          f"{steps_line(meta_train_steps, None)} [{card}]")
 
-    def first_blocks(device: str, m, n: int) -> dict:
-        draws = CountingDraws(mcfg, mtrainer.spec, torch.device(device),
-                              torch.Generator(device=device).manual_seed(SEED),
-                              torch.Generator().manual_seed(SEED))
-        spans = CudaSpans() if device == "cuda" else contextlib.nullcontext
-        zero_launches()
-        t0 = time.perf_counter()
-        result = run_online(mcfg, mtrainer.spec, m, tx[:n].to(device), rx[:n].to(device),
-                            h[:n].to(device), draws, spans=spans)
-        if device == "cuda":
-            torch.cuda.synchronize()
-            no_launches("meta_lstm by-word blocks", read_launches())
-        run = {"s": time.perf_counter() - t0, "sers": result.ser_by_word,
-               "maml_steps": draws.maml_steps, "n_gated": result.n_gated,
-               "parts": spans.seconds() if device == "cuda" else None}
-        print(f"meta_lstm first {n} blocks on {device}: {run['s']:.2f} s, {draws.maml_steps} "
-              f"second-order MAML steps, {result.n_gated} gated blocks, parts {run['parts']}")
-        return run
-
+    # the val batch after meta_train's (its minibatch scores drew val
+    # batches), whose first meta event is at block 5
     n = META_LSTM_BLOCKS
-    runs = {"cuda": first_blocks("cuda", params, n)}
-    if not runs["cuda"]["maml_steps"]:
+    runs = first_blocks("meta_lstm", mcfg, n, ("graphed", "graphed again", "uncaptured",
+                                               "uncaptured again", "cpu"), mtrainer)
+    for way in ("graphed", "uncaptured"):
+        no_launches(f"meta_lstm by-word blocks, {way}", runs[way]["launches"])
+    if not runs["graphed"]["maml_steps"]:
         fail(f"meta_lstm: no meta event in the first {n} blocks")
-    runs["cpu"] = first_blocks("cpu", copy.deepcopy(params).cpu(), n)
-    block_diff = float(np.abs(runs["cuda"]["sers"] - runs["cpu"]["sers"]).max())
+    held = held_graphed("meta_lstm", runs, card)
+    block_diff = float(np.abs(runs["graphed"]["sers"] - runs["cpu"]["sers"]).max())
     print(f"meta_lstm first {n} blocks, card against CPU: largest per-block SER difference "
           f"{block_diff:.6f} (limit {CARD_CPU_BLOCK_TOL:.6f}); card "
-          f"{runs['cuda']['sers'].tolist()}, CPU {runs['cpu']['sers'].tolist()}")
+          f"{runs['graphed']['sers'].tolist()}, CPU {runs['cpu']['sers'].tolist()}")
     if block_diff > CARD_CPU_BLOCK_TOL:
         fail("meta_lstm: the card and the CPU disagree on the first blocks")
-    steps = runs["cuda"]["maml_steps"]
-    meta_s = runs["cuda"]["parts"]["meta"][2]
-    per_step = meta_s / steps
-    estimate = META_EVENTS * MAX_STEPS_PER_EVENT * per_step
-    print(f"meta_lstm second-order MAML step on the card: {per_step:.4f} s per step over {steps} "
-          f"steps ({meta_s:.2f} s of meta adaptation, host clock); meta_train on the miss "
-          f"{meta_train_s:.2f} s for {mcfg.train_minibatch_num} minibatches. Estimate, not a "
-          f"measurement: a 300-block meta run takes about {META_EVENTS} events x at most "
-          f"{MAX_STEPS_PER_EVENT} steps x {per_step:.4f} s = {estimate:.0f} s at most [{card}]")
-    return {"meta_train_s": meta_train_s, "blocks": n, "max_block_ser_diff": block_diff,
-            "card_s": runs["cuda"]["s"], "cpu_s": runs["cpu"]["s"], "maml_steps": steps,
-            "s_per_maml_step": per_step, "full_run_estimate_s": estimate,
-            "parts": runs["cuda"]["parts"]}
+    return {"meta_train_s": meta_train_s, "meta_train_steps": meta_train_steps, "blocks": n,
+            "max_block_ser_diff": block_diff, "card_s": runs["graphed"]["s"],
+            "cpu_s": runs["cpu"]["s"], "maml_steps": runs["graphed"]["maml_steps"],
+            "graphed_vs_uncaptured": held}
 
 
 # `python -m metaviterbinet_tpu_torch` with the libraries that the port's
@@ -1948,12 +2213,14 @@ def main() -> int:
         jobs = start_beside(pool, weights_dir, card)
         threads = torch.get_num_threads()
         torch.set_num_threads(MAIN_CPU_THREADS_BESIDE_CHILDREN)
-        online = timed("online", phase_online, weights_dir)
+        online = timed("online", phase_online, weights_dir, card)
         cli_out = timed("cli", phase_cli, f"{weights_dir}/vnet")
         bf16 = timed("bf16", phase_bf16, model)
         parallel = timed("parallel", phase_parallel, trained, gen)
         lstm_out, sweep = timed("lstm and sweep (the wait after phase 7b)", finish_beside, jobs)
         torch.set_num_threads(threads)
+    steps = timed("steps", phase_steps, card)
+    lstm_out["meta_lstm"]["full_run_estimate"] = meta_lstm_estimate(steps, card)
     times = timed("width", phase_width, model, gen, card)
     bench_line = timed("bench", phase_bench)
 
@@ -1969,6 +2236,7 @@ def main() -> int:
                       "anchors": anchors, "by_word_10db": online, "lstm": lstm_out,
                       "sweep_8db_cost2100": sweep,
                       "cli": cli_out, "bf16": bf16, "parallel": parallel, "bench": bench_line,
+                      "graphed_steps": steps,
                       "phase_seconds": seconds}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

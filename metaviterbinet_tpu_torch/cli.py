@@ -161,8 +161,13 @@ def main(argv=None) -> int:
         print(json.dumps({"status": "trained", "weights_dir": trainer.weights_dir}))
     else:
         sers = trainer.evaluate()
-        print(json.dumps({
-            "detector": args.detector, "eval_mode": cfg.eval_mode,
-            "mean_ser": float(sers.mean()), "n_points": len(sers),
-        }))
+        out = {"detector": args.detector, "eval_mode": cfg.eval_mode,
+               "mean_ser": float(sers.mean()), "n_points": len(sers)}
+        if cfg.eval_mode == "by_word":
+            # the paper's metric (the mean over the data blocks, pilots
+            # excluded), the engine's steps and the SER of each block
+            out["mean_data_ser"] = float(sers[cfg.data_indices("val")].mean())
+            out["steps"] = trainer.online_result.steps
+            out["ser_by_word"] = sers.tolist()
+        print(json.dumps(out))
     return 0

@@ -88,9 +88,12 @@ class Trainer:
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.noise_seed + 1)
         self.host_generator = torch.Generator().manual_seed(cfg.noise_seed + 2)
         self.draws = Draws(cfg, self.spec, self.device, self.generator, self.host_generator)
-        # params from the caller are evaluated as given; otherwise checkpoints
+        # params from the caller: every evaluate() starts from them, as the
+        # JAX Trainer's starts from its checkpoint; otherwise checkpoints.
+        # self.params holds the params last evaluated (adapted, by word) or
+        # trained
+        self._given_params = params
         self.params = params
-        self._fixed_params = params is not None
         self.loss_fn = self.meta_loss_fn = None
         if self.spec.trainable:
             self.loss_fn, self.meta_loss_fn = (
@@ -154,9 +157,11 @@ class Trainer:
         return float(self.eval_tail(params, tx, rx, h))
 
     def _params_at(self, snr: float):
-        if self.spec.trainable and not self._fixed_params:
-            self.params = self.load_weights(snr, self.cfg.gamma)
-        return self.params
+        """The params an evaluation at `snr` starts from: the caller's, or
+        the checkpoint's (None for the VA)."""
+        if self._given_params is not None or not self.spec.trainable:
+            return self._given_params
+        return self.load_weights(snr, self.cfg.gamma)
 
     def evaluate(self) -> np.ndarray:
         """eval_mode dispatch (trainer.py:368-381). Returns the SER vector:
@@ -166,7 +171,7 @@ class Trainer:
             if not cfg.use_ecc:
                 raise ValueError("Must run with ECC in by_word eval mode")
             snr = float(cfg.snr_range("val")[0])
-            self._params_at(snr)
+            self.params = self._params_at(snr)
             return self.eval_by_word(snr, cfg.gamma)
         if cfg.eval_mode != "aggregated":
             raise ValueError(f"No such eval mode: {cfg.eval_mode}")
@@ -174,6 +179,7 @@ class Trainer:
         # every point's params first (checkpoint IO, and training on a miss),
         # then the sweep (trainer.py:211-217)
         params_per_snr = [self._params_at(snr) for snr in snrs]
+        self.params = params_per_snr[-1]
         t0 = time.perf_counter()
         sers = self.sweep_eval_fused(snrs, params_per_snr)
         dt = time.perf_counter() - t0

@@ -28,15 +28,27 @@ The JAX engine is one `lax.scan` over blocks. Here the blocks run in a
 Python loop with their tensors on the device, and the data-dependent gate is
 a host branch: the engine reads each data block's SER back to the host,
 one synchronisation per block (pilots need none), and skips the work a
-closed gate or an idle meta slot would mask. Removing that sync (masked
-updates, CUDA graphs) is later work.
+closed gate or an idle meta slot would mask. The per-block detect, RS decode
+and SER run eagerly.
+
+The two step loops inside a block are the JAX engine's scans `sgd_steps`
+and `meta_adapt`. On the card each of their steps is a CUDA graph, captured
+once per run and replayed once per step (online/graphs.py); on the CPU the
+same step function runs directly:
+  - the self-supervised step (loss, gradient, optimizer update), replayed
+    `self_supervised_iterations` times per gated block, its select_batch
+    indices drawn for the whole block before the replays;
+  - the MAML pair step (train/meta.py), replayed once per distinct query
+    draw, its support and query rows copied into the graph's inputs.
+The host keeps the optimizer's count and gives each step its bias
+correction as a device tensor (train/optim.py::Optimizer.advance).
 
 The self-supervised step for the meta loss (CE over states, no
-subsampling) with Adam and no clipping, in f32, is ONE launch of the fused
-kernel (kernels/online_sgd.py) per gated block; any other loss, optimizer
-or compute dtype, and the LSTM family's bit labels, runs
-`self_supervised_iterations` autograd steps (the LSTM's through its fused
-forward). The MAML step goes through the spec's `meta_score`.
+subsampling) with Adam and no clipping, in f32, is instead ONE launch of
+the fused kernel (kernels/online_sgd.py) per gated block, outside any
+graph; any other loss, optimizer or compute dtype, and the LSTM family's
+bit labels, runs the graphed step (the LSTM's through its cuDNN forward).
+The MAML step goes through the spec's `meta_score`.
 """
 from __future__ import annotations
 
@@ -50,6 +62,7 @@ import torch
 from metaviterbinet_tpu_torch.config import Config
 from metaviterbinet_tpu_torch.ecc.rs import rs_decode_bits, rs_encode_bits
 from metaviterbinet_tpu_torch.kernels.online_sgd import online_adapt_viterbinet
+from metaviterbinet_tpu_torch.online.graphs import GraphedStep, device_rows
 from metaviterbinet_tpu_torch.ops.trellis import calculate_states
 from metaviterbinet_tpu_torch.train.losses import make_loss_fn, select_batch
 from metaviterbinet_tpu_torch.train.meta import make_maml_step, sorted_unique
@@ -61,6 +74,7 @@ class OnlineResult(NamedTuple):
     params: Any               # final adapted params (None for the VA)
     n_buffer: int             # final buffer fill
     n_gated: int              # blocks that passed the gate
+    steps: dict               # steps taken by graphed step: "self_supervised", "maml"
 
 
 class Draws:
@@ -83,9 +97,28 @@ class Draws:
         """select_batch indices over n labels for self-supervised step `step`."""
         return select_batch(n, self.cfg.train_minibatch_size, self.generator, self.device)
 
+    def select_steps(self, count: int, n_steps: int, n: int) -> torch.Tensor:
+        """[n_steps, train_minibatch_size]: the `select` draws of a block's
+        steps, in step order, from the same generator."""
+        return torch.stack([self.select(count, step, n) for step in range(n_steps)])
+
     def init_params(self, count: int):
         """Fresh params for weights_init='random'."""
         return self.spec.init(self.cfg, self.generator, self.device)
+
+
+def make_self_supervised_step(loss_fn: Callable, optimizer: Optimizer) -> GraphedStep:
+    """The engine's self-supervised step, a CUDA graph on the card:
+    step(params, opt_state, rx [1, T], label [1, n], idx [B] or None, bc [2])
+    takes one optimizer step on loss_fn(params, rx, label, idx) with the
+    bias correction bc (Optimizer.advance), in place."""
+
+    def self_supervised_step(params, opt_state, rx, label, idx, bc) -> None:
+        loss = loss_fn(params, rx, label, idx)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        optimizer.apply(params, dict(zip(params, grads)), opt_state, bc)
+
+    return GraphedStep(self_supervised_step, "self_supervised")
 
 
 def _snapshot(params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
@@ -139,6 +172,8 @@ def run_online(cfg: Config, spec, params, tx_words: torch.Tensor, rx_words: torc
         opt_state = optimizer.init(p)
         loss_fn = make_loss_fn(spec.score, spec.label_kind, L, spec.subsample_loss, cfg.loss_type)
     fused = self_sup and uses_fused_adaptation(cfg, spec)
+    if self_sup and not fused:
+        ss_step = make_self_supervised_step(loss_fn, optimizer)
     if meta:
         maml_loss_fn = make_loss_fn(spec.meta_score, spec.label_kind, L, spec.subsample_loss,
                                     cfg.loss_type)
@@ -172,9 +207,11 @@ def run_online(cfg: Config, spec, params, tx_words: torch.Tensor, rx_words: torc
                 maml_step(p, opt_state, torch.cat([buf_rx[i:i + 1] for i in phys_s]),
                           torch.cat([buf_tx[i:i + 1] for i in phys_s]),
                           buf_rx[q:q + 1], buf_tx[q:q + 1])
+                steps["maml"] += 1
 
     sers = np.zeros(n_words, dtype=np.float32)
     n_gated = 0
+    steps = {"self_supervised": 0, "maml": 0}
     for count in range(n_words):
         rx, tx = rx_words[count:count + 1], tx_words[count]
         is_data = count % subframes != 0
@@ -228,11 +265,13 @@ def run_online(cfg: Config, spec, params, tx_words: torch.Tensor, rx_words: torc
                                             cfg.self_supervised_iterations, cfg.lr,
                                             ADAM_B1, ADAM_B2, ADAM_EPS)
                 else:
-                    names = list(p)
-                    for step in range(cfg.self_supervised_iterations):
-                        idx = draws.select(count, step, T) if spec.subsample_loss else None
-                        loss = loss_fn(p, rx, label[None], idx)
-                        grads = torch.autograd.grad(loss, [p[k] for k in names])
-                        optimizer.step(p, dict(zip(names, grads)), opt_state)
+                    n_steps = cfg.self_supervised_iterations
+                    idx = draws.select_steps(count, n_steps, T) if spec.subsample_loss \
+                        else [None] * n_steps
+                    bc = device_rows(optimizer.advance(opt_state, n_steps), rx.device)
+                    for step in range(n_steps):
+                        ss_step(p, opt_state, rx, label[None], idx[step], bc[step])
+                    steps["self_supervised"] += n_steps
 
-    return OnlineResult(ser_by_word=sers, params=model, n_buffer=n_valid, n_gated=n_gated)
+    return OnlineResult(ser_by_word=sers, params=model, n_buffer=n_valid, n_gated=n_gated,
+                        steps=steps)

@@ -7,6 +7,9 @@ Second-order MAML differentiates through the inner gradient
 (`create_graph=True`); first-order MAML treats it as a constant. The loss
 must be built on a score that is twice differentiable on the card
 (DetectorSpec.meta_score: the LSTM's unrolled recurrence, not cuDNN's).
+
+On the card the step is captured once as a CUDA graph and replayed
+(online/graphs.py); on the CPU it runs directly.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ from typing import Callable
 
 import torch
 
+from metaviterbinet_tpu_torch.online.graphs import GraphedStep, device_rows
 from metaviterbinet_tpu_torch.train.optim import Optimizer, OptState
 
 
@@ -27,9 +31,13 @@ def sorted_unique(j_hats: torch.Tensor) -> torch.Tensor:
 def make_maml_step(loss_fn: Callable, optimizer: Optimizer, meta_lr: float,
                    second_order: bool) -> Callable:
     """Returns step(params, opt_state, s_rx, s_tx, q_rx, q_tx) -> query loss,
-    which updates params and opt_state in place."""
+    which updates params and opt_state in place. On the card the loss is
+    the graph's static output, which the next step overwrites: an eager op
+    on it before the next step reads this step's loss, in stream order; a
+    host read after the next step would read that step's."""
 
-    def step(params: dict[str, torch.Tensor], opt_state: OptState, s_rx, s_tx, q_rx, q_tx):
+    def pair_step(params: dict[str, torch.Tensor], opt_state: OptState, s_rx, s_tx, q_rx, q_tx,
+                  bc):
         names = list(params)
         leaves = [params[k] for k in names]
         inner = torch.autograd.grad(loss_fn(params, s_rx, s_tx), leaves,
@@ -37,7 +45,13 @@ def make_maml_step(loss_fn: Callable, optimizer: Optimizer, meta_lr: float,
         updated = {k: p - meta_lr * g for k, p, g in zip(names, leaves, inner)}
         loss_q = loss_fn(updated, q_rx, q_tx)
         meta_grads = torch.autograd.grad(loss_q, leaves)
-        optimizer.step(params, dict(zip(names, meta_grads)), opt_state)
+        optimizer.apply(params, dict(zip(names, meta_grads)), opt_state, bc)
         return loss_q.detach()
+
+    graphed = GraphedStep(pair_step, "maml")
+
+    def step(params: dict[str, torch.Tensor], opt_state: OptState, s_rx, s_tx, q_rx, q_tx):
+        bc = device_rows(optimizer.advance(opt_state, 1), s_rx.device)[0]
+        return graphed(params, opt_state, s_rx, s_tx, q_rx, q_tx, bc)
 
     return step

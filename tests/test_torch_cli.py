@@ -88,6 +88,32 @@ def test_cli_evaluate_va_on_the_cpu(capsys):
     assert out["mean_ser"] == Trainer(cfg, "va", device="cpu", verbose=False).evaluate().mean()
 
 
+@pytest.mark.parametrize("detector,mode", [
+    ("vnet", ["self_supervised=true"]),
+    ("meta_vnet", ["self_supervised=true", "online_meta=true", "dtype=bfloat16"])])
+def test_cli_by_word_reports_the_data_blocks_and_the_steps(tmp_path, capsys, detector, mode):
+    """`evaluate --eval-mode by_word`: the SER of each block, their mean
+    over the data blocks, and the engine's self-supervised and MAML steps (every block gated: 10
+    blocks x 3 steps; the bf16 meta mode's self-supervision runs the
+    graphed step, not K6), as a Trainer from the same checkpoint gives
+    them."""
+    sets = [f"{k}={v}" for k, v in TINY.items()] + ["ser_thresh=1.0", *mode]
+    argv = ["evaluate", "--detector", detector, "--snr", "10", "--device", "cpu", "--eval-mode",
+            "by_word", "--weights-dir", str(tmp_path), "--set", *sets]
+    assert cli.main(argv) == 0  # trains on the miss, which draws val batches first
+    assert cli.main(argv) == 0
+    out = _cli_json(capsys)
+    cfg = cli._build_config(cli.argparse.Namespace(
+        set=sets, snr=10.0, eval_mode="by_word", weights_dir=str(tmp_path), config=None))
+    trainer = Trainer(cfg, detector, device="cpu", verbose=False)
+    sers = trainer.evaluate()
+    assert out["ser_by_word"] == sers.tolist()
+    assert out["mean_data_ser"] == float(sers[cfg.data_indices("val")].mean())
+    assert out["steps"] == trainer.online_result.steps
+    assert out["steps"]["self_supervised"] == 10 * 3
+    assert (out["steps"]["maml"] > 0) == (detector == "meta_vnet")
+
+
 def test_cli_rejects_unknown_field_and_unported_commands():
     with pytest.raises(SystemExit):
         cli.main(["evaluate", "--detector", "va", "--device", "cpu", "--set", "nonsense=1"])

@@ -446,3 +446,79 @@ def test_lowlat_decode_equals_k5(gen, W, T):
     floats = torch.randn((16, 136, 16), generator=gen, device="cuda") ** 2
     agree = (viterbi_decode_lowlat(floats) == acs.viterbi_decode_kernel(floats)).float().mean()
     assert float(agree) >= chip_smoke.LOWLAT_AGREEMENT
+
+
+# ------------------------------------------------------------ the graphed steps
+
+GRAPH_CASES = [("vnet self-supervised", True), ("lstm self-supervised", True),
+               ("meta_lstm self-supervised", True),
+               ("meta_vnet maml", True), ("meta_vnet maml", False),
+               ("meta_lstm maml", True), ("meta_lstm maml", False)]
+
+
+def test_bias_correction_factors_equal_the_eager_division_on_the_card(gen):
+    """On the card an Adam update that multiplies by the host's float32
+    reciprocal of the bias correction, read from a device tensor as a
+    replayed step reads it, equals Optimizer.step's and the division by the
+    host float that PyTorch computes eagerly (its CUDA kernel multiplies by
+    the reciprocal), bit for bit, over 300 steps."""
+    from metaviterbinet_tpu_torch.online.graphs import device_rows
+    from metaviterbinet_tpu_torch.train.optim import (
+        ADAM_B1, ADAM_B2, ADAM_EPS, _bias_correction)
+    params = {"w": torch.randn((50, 100), generator=gen, device="cuda")}
+    twin, divided = ({"w": params["w"].clone()} for _ in range(2))
+    opt = Optimizer("Adam", 1e-3)
+    host, dev = opt.init(params), opt.init(twin)
+    mu, nu = torch.zeros_like(params["w"]), torch.zeros_like(params["w"])
+    for count in range(1, 301):
+        g = 0.1 * torch.randn((50, 100), generator=gen, device="cuda")
+        opt.step(params, {"w": g}, host)
+        opt.apply(twin, {"w": g}, dev, device_rows(opt.advance(dev, 1), g.device)[0])
+        mu = (1 - ADAM_B1) * g + ADAM_B1 * mu
+        nu = (1 - ADAM_B2) * (g * g) + ADAM_B2 * nu
+        bc1, bc2 = _bias_correction(ADAM_B1, count), _bias_correction(ADAM_B2, count)
+        divided["w"].add_((mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS) * -1e-3)
+    assert host.count == dev.count == 300
+    assert torch.equal(params["w"], twin["w"]) and torch.equal(params["w"], divided["w"])
+
+
+@pytest.mark.parametrize("kind,second_order", GRAPH_CASES)
+def test_graphed_step_equals_the_step_called_directly(gen, kind, second_order):
+    """The by-word engine's steps at T = 136 (chip_smoke.step_case), each on
+    its own inputs: the warm-up steps, the capture and its replay and three
+    more replays give the params and moments of the same steps called
+    directly on the card, bit for bit (meta_lstm's second-order step within
+    chip_smoke.STEP_TOL: eagerly too it does not repeat bit for bit on
+    fresh tensors)."""
+    from metaviterbinet_tpu_torch.online import graphs
+    graphed, calls = chip_smoke.step_run(kind, True, second_order)
+    direct, direct_calls = chip_smoke.step_run(kind, False, second_order)
+    n = graphs.WARMUP_STEPS + 4
+    assert calls == {"direct": 0, "warmup": graphs.WARMUP_STEPS, "capture": 1,
+                     "replay": n - graphs.WARMUP_STEPS}
+    assert direct_calls == {"direct": n, "warmup": 0, "capture": 0, "replay": 0}
+    tol = chip_smoke.STEP_TOL.get((kind, second_order), 0.0)
+    assert chip_smoke.tensors_apart(graphed, direct) <= tol
+
+
+def test_a_capture_that_cannot_happen_raises(gen):
+    """A step with a host read cannot be captured: the capture raises with
+    CUDA's error after the warm-up steps ran, and nothing runs on eagerly."""
+    from metaviterbinet_tpu_torch.online.graphs import WARMUP_STEPS, GraphedStep
+    p = {"w": torch.zeros(3, device="cuda")}
+    opt = Optimizer("SGD", 1.0)
+    state = opt.init(p)
+
+    def step(params, opt_state, g, bc):
+        opt.apply(params, {"w": g * float(g.sum())}, opt_state, bc)
+
+    graphed = GraphedStep(step, "host read")
+    g, bc = torch.ones(3, device="cuda"), torch.ones(2, device="cuda")
+    for _ in range(WARMUP_STEPS):
+        graphed(p, state, g, bc)
+    # the stream context restores the current stream that a failed capture
+    # leaves switched
+    with torch.cuda.stream(torch.cuda.current_stream()), pytest.raises(RuntimeError):
+        graphed(p, state, g, bc)
+    torch.cuda.synchronize()
+    assert torch.equal(p["w"], torch.full((3,), -3.0 * WARMUP_STEPS, device="cuda"))

@@ -259,3 +259,35 @@ def test_by_word_evaluate_trains_on_miss_then_adapts(tmp_path, name, mode):
     trained = (tmp_path / "snr_10.0_gamma_0.2.pt").is_file()
     assert trained == (name != "va")
     assert t.online_result.n_buffer >= 2
+
+
+@pytest.mark.parametrize("second", ["by_word", "aggregated"])
+def test_every_evaluate_starts_from_the_callers_params(second):
+    """A Trainer given params= evaluates from them on every call, as the
+    JAX Trainer reloads its checkpoint on every evaluate(): after a by-word
+    run that adapted, a second by-word run, or an aggregated one, from the
+    same streams gives what a fresh Trainer with the same params gives."""
+    from metaviterbinet_tpu_torch.data.dataset import ChannelDataset
+    from metaviterbinet_tpu_torch.models import viterbinet
+    cfg = Config(**dict(TINY, eval_mode="by_word", self_supervised=True, ser_thresh=1.0,
+                        self_supervised_iterations=20, lr=1e-2))
+    params = viterbinet.init_params(cfg.n_states, torch.Generator().manual_seed(3), "cpu")
+    start = {k: v.clone() for k, v in viterbinet.param_dict(params).items()}
+    second_cfg = cfg.replace(eval_mode=second)
+
+    def fresh_streams(t):
+        t.val_dataset = ChannelDataset(t.cfg, "val", "cpu")
+        t.generator.manual_seed(cfg.noise_seed + 1)
+        t.host_generator.manual_seed(cfg.noise_seed + 2)
+
+    t = Trainer(cfg, "vnet", device="cpu", params=params, verbose=False)
+    t.evaluate()
+    adapted = viterbinet.param_dict(t.online_result.params)
+    assert not torch.equal(adapted["w2"], start["w2"])
+    t.cfg = second_cfg
+    fresh_streams(t)
+    got = t.evaluate()
+    want = Trainer(second_cfg, "vnet", device="cpu", params=params, verbose=False).evaluate()
+    np.testing.assert_array_equal(got, want)
+    for k, v in viterbinet.param_dict(params).items():
+        assert torch.equal(v, start[k]), k
