@@ -34,11 +34,21 @@ from metaviterbinet_tpu_torch.ecc.gf256 import (
 _BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
 
 
+# The codec's constants are made once per device, like gf256.gf_tables: a
+# copy from host memory on every call could not be captured in a CUDA graph
+# (the engine captures the decode, online/engine.py), and the first call, a
+# warm-up outside any capture, fills the cache.
+
+@functools.lru_cache(maxsize=8)
+def _bit_weights(device: torch.device) -> torch.Tensor:
+    return torch.tensor(_BIT_WEIGHTS, dtype=torch.int64, device=device)
+
+
 def bits_to_bytes(bits: torch.Tensor) -> torch.Tensor:
     """[..., 8k] {0,1} -> [..., k] int64 bytes, MSB-first (np.packbits order)."""
     bits = bits.to(torch.int64)
-    weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.int64, device=bits.device)
-    return (bits.reshape(*bits.shape[:-1], bits.shape[-1] // 8, 8) * weights).sum(dim=-1)
+    return (bits.reshape(*bits.shape[:-1], bits.shape[-1] // 8, 8)
+            * _bit_weights(bits.device)).sum(dim=-1)
 
 
 def bytes_to_bits(by: torch.Tensor) -> torch.Tensor:
@@ -71,12 +81,17 @@ def _parity_matrix(k: int, nsym: int) -> np.ndarray:
     return rows
 
 
+@functools.lru_cache(maxsize=16)
+def _parity_rows(k: int, nsym: int, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(_parity_matrix(k, nsym), device=device)
+
+
 def rs_encode_bytes(msg: torch.Tensor, nsym: int) -> torch.Tensor:
     """Systematic RS encode: msg [words, k] int64 -> codewords [words, k+nsym]."""
     k = msg.shape[-1]
     if k + nsym > 255:
         raise ValueError(f"codeword too long: {k + nsym} > 255")
-    rows = torch.as_tensor(_parity_matrix(k, nsym), device=msg.device)
+    rows = _parity_rows(k, nsym, msg.device)
     parity = xor_reduce(gf_mul(msg.unsqueeze(-1), rows), dim=-2)
     return torch.cat([msg, parity], dim=-1)
 
@@ -106,6 +121,11 @@ def _decode_consts(n: int, nsym: int) -> tuple[np.ndarray, np.ndarray]:
     return synd_pow, chien_pow
 
 
+@functools.lru_cache(maxsize=16)
+def _decode_tensors(n: int, nsym: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    return tuple(torch.as_tensor(a, device=device) for a in _decode_consts(n, nsym))
+
+
 def rs_decode_bytes(rx: torch.Tensor, nsym: int):
     """Decode received codewords [words, n] int64 -> (messages [words, n-nsym],
     uncorrectable flags [words] bool)."""
@@ -114,8 +134,7 @@ def rs_decode_bytes(rx: torch.Tensor, nsym: int):
     W, n = rx.shape
     nb = nsym + 2
     maxe = nsym
-    synd_pow, chien_pow = (torch.as_tensor(a, device=device)
-                           for a in _decode_consts(n, nsym))
+    synd_pow, chien_pow = _decode_tensors(n, nsym, device)
 
     # ---- syndromes (reference rs_decoder.py:37-47) ----
     synd_core = xor_reduce(gf_mul(rx[:, None, :], synd_pow), dim=2)  # [W, nsym]

@@ -54,7 +54,7 @@ from metaviterbinet_tpu_torch.paths import WEIGHTS_DIR
 from metaviterbinet_tpu_torch.train.checkpoint import (
     load_checkpoint, save_config_provenance, save_params)
 from metaviterbinet_tpu_torch.train.losses import make_loss_fn, select_batch
-from metaviterbinet_tpu_torch.train.loop import word_sweep
+from metaviterbinet_tpu_torch.train.loop import make_sgd_step, word_sweep
 from metaviterbinet_tpu_torch.train.meta import make_maml_step, sorted_unique
 from metaviterbinet_tpu_torch.train.optim import Optimizer, OptState
 
@@ -252,6 +252,8 @@ class Trainer:
             return self.meta_train()
         cfg = self.cfg
         optimizer = Optimizer(cfg.optimizer_type, cfg.lr, cfg.clip_grad_norm)
+        # one graph per SNR (its params are new tensors), replayed per word
+        step = make_sgd_step(self.loss_fn, optimizer, "word_sweep")
         for snr in (float(s) for s in cfg.snr_range("train")):
             self._log(f"SNR - {snr}, Gamma - {cfg.gamma}")
             model = self.init_params()
@@ -264,7 +266,8 @@ class Trainer:
                 if self.spec.subsample_loss:
                     select = [select_batch(tx.shape[1], cfg.train_minibatch_size, self.generator,
                                            self.device) for _ in range(tx.shape[0])]
-                loss = float(word_sweep(self.loss_fn, optimizer, params, opt_state, rx, tx, select))
+                loss = float(word_sweep(self.loss_fn, optimizer, params, opt_state, rx, tx, select,
+                                        step))
                 ser = self.single_eval_at_point(model, snr, cfg.gamma)
                 self._log(f"Minibatch {minibatch}, ser - {ser}, loss {loss:.3f}")
                 self._metric("train_minibatch", snr=snr, minibatch=minibatch, ser=ser, loss=loss)

@@ -5,6 +5,7 @@ no parameters; CSI enters as explicit per-word channel taps.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -28,6 +29,13 @@ def state_symbols(n_states: int, memory_length: int) -> np.ndarray:
     return bpsk_modulate(bits).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=8)
+def _symbols_on(memory_length: int, device: torch.device) -> torch.Tensor:
+    """state_symbols as a tensor on `device`, made once per device so that
+    a CUDA graph can capture state_means (no copy from host memory)."""
+    return torch.as_tensor(state_symbols(2 ** memory_length, memory_length), device=device)
+
+
 def state_means(h: torch.Tensor) -> torch.Tensor:
     """Per-word noiseless state means mu [words, n_states] = h @ symbols^T.
 
@@ -35,7 +43,7 @@ def state_means(h: torch.Tensor) -> torch.Tensor:
     being +-1), so the result does not depend on a matmul's reduction order
     or on TF32 settings."""
     L = h.shape[-1]
-    sym = torch.as_tensor(state_symbols(2 ** L, L), device=h.device)
+    sym = _symbols_on(L, h.device)
     mu = h[:, None, 0] * sym[:, 0]
     for l in range(1, L):
         mu = mu + h[:, None, l] * sym[:, l]

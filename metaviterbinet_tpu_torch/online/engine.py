@@ -28,13 +28,21 @@ The JAX engine is one `lax.scan` over blocks. Here the blocks run in a
 Python loop with their tensors on the device, and the data-dependent gate is
 a host branch: the engine reads each data block's SER back to the host,
 one synchronisation per block (pilots need none), and skips the work a
-closed gate or an idle meta slot would mask. The per-block detect, RS decode
-and SER run eagerly.
+closed gate or an idle meta slot would mask.
+
+Each block's detect, RS decode, SER and pseudo-label are the JAX scan
+body's `detect_decode_score`, a function of tensors here too
+(`detect_decode_score`). On the card it is a CUDA graph, one for pilot and
+one for data blocks, captured once per run and replayed once per block
+(online/graphs.py); it reads the live params in place, so one capture
+serves the whole run, across the meta events' restores. The buffer append
+after it stays eager (two row copies). On the CPU the same function runs
+directly.
 
 The two step loops inside a block are the JAX engine's scans `sgd_steps`
 and `meta_adapt`. On the card each of their steps is a CUDA graph, captured
-once per run and replayed once per step (online/graphs.py); on the CPU the
-same step function runs directly:
+once per run and replayed once per step; on the CPU the same step function
+runs directly:
   - the self-supervised step (loss, gradient, optimizer update), replayed
     `self_supervised_iterations` times per gated block, its select_batch
     indices drawn for the whole block before the replays;
@@ -54,6 +62,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
@@ -64,6 +73,7 @@ from metaviterbinet_tpu_torch.ecc.rs import rs_decode_bits, rs_encode_bits
 from metaviterbinet_tpu_torch.kernels.online_sgd import online_adapt_viterbinet
 from metaviterbinet_tpu_torch.online.graphs import GraphedStep, device_rows
 from metaviterbinet_tpu_torch.ops.trellis import calculate_states
+from metaviterbinet_tpu_torch.train.loop import make_sgd_step
 from metaviterbinet_tpu_torch.train.losses import make_loss_fn, select_batch
 from metaviterbinet_tpu_torch.train.meta import make_maml_step, sorted_unique
 from metaviterbinet_tpu_torch.train.optim import ADAM_B1, ADAM_B2, ADAM_EPS, Optimizer
@@ -111,14 +121,54 @@ def make_self_supervised_step(loss_fn: Callable, optimizer: Optimizer) -> Graphe
     """The engine's self-supervised step, a CUDA graph on the card:
     step(params, opt_state, rx [1, T], label [1, n], idx [B] or None, bc [2])
     takes one optimizer step on loss_fn(params, rx, label, idx) with the
-    bias correction bc (Optimizer.advance), in place."""
+    bias correction bc (Optimizer.advance), in place (train/loop.py::
+    make_sgd_step)."""
+    return make_sgd_step(loss_fn, optimizer, "self_supervised")
 
-    def self_supervised_step(params, opt_state, rx, label, idx, bc) -> None:
-        loss = loss_fn(params, rx, label, idx)
-        grads = torch.autograd.grad(loss, list(params.values()))
-        optimizer.apply(params, dict(zip(params, grads)), opt_state, bc)
 
-    return GraphedStep(self_supervised_step, "self_supervised")
+@torch.no_grad()
+def detect_decode_score(detect: Callable, rx: torch.Tensor, tx: torch.Tensor, h: torch.Tensor,
+                        nsym: int, use_ecc: bool, is_data: bool):
+    """One block of the JAX engine's scan body (`detect_decode_score` in its
+    online/engine.py): detect(rx [1, T], h [1, L]) -> [1, T] bits, RS-decode,
+    score against the true word tx [n], and form the pseudo-label. Returns
+    (ser, label, detected) on the device: the 0-d f32 SER (0 at a pilot),
+    and [T] label and detected bits in the detected bits' dtype.
+
+    ser is k * f32(1/n) for k symbol errors, the rounding of jnp.mean (not
+    the k/n of torch.mean). The label is the raw detected word on a data
+    block with 0 < ser, else the re-encoding of the decoded word (data) or
+    of the true word (pilot)."""
+    detected = detect(rx, h)[0]
+    decoded = rs_decode_bits(detected[None], nsym)[0][0] if use_ecc else detected[:tx.shape[0]]
+    if is_data:
+        ser = (decoded != tx).sum().to(torch.float32) * float(np.float32(1.0 / tx.shape[0]))
+        source = decoded
+    else:
+        ser = detected.new_zeros((), dtype=torch.float32)
+        source = tx.to(decoded.dtype)
+    encoded = rs_encode_bits(source[None], nsym)[0] if use_ecc else source
+    label = torch.where(ser > 0, detected, encoded) if is_data else encoded
+    return ser, label, detected
+
+
+def make_block_scorer(cfg: Config, spec, model) -> Callable:
+    """score(is_data, rx [1, T], tx [n], h [1, L]) -> detect_decode_score's
+    (ser, label, detected) with the spec's engine detect on `model` (None
+    for the VA), as two graphed calls, one per kind of block: the detect
+    reads the model's params in place, the graphs' state."""
+    p = spec.model.param_dict(model) if spec.trainable else {}
+
+    detect = functools.partial(spec.engine_detect, model)
+
+    def block(is_data: bool) -> GraphedStep:
+        def fn(p, rx, tx, h):
+            return detect_decode_score(detect, rx, tx, h, cfg.n_symbols, cfg.use_ecc, is_data)
+
+        return GraphedStep(fn, "detect", n_state=1)
+
+    graphed = {is_data: block(is_data) for is_data in (False, True)}
+    return lambda is_data, rx, tx, h: graphed[is_data](p, rx, tx, h)
 
 
 def _snapshot(params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
@@ -153,12 +203,12 @@ def run_online(cfg: Config, spec, params, tx_words: torch.Tensor, rx_words: torc
     rx_words [n_words, T] received samples; h_words [n_words, L] decoder-side
     CSI (the VA's only). `params` (a model of the spec's family, None for
     the VA) is copied, not changed. `spans(name)` is entered around each
-    block's "detect" (detect, RS decode, SER), "sync" (inside "detect": the
-    read of the SER), "adapt" (self-supervision) and "meta" (meta
-    adaptation), for timing."""
+    block's "detect" (detect, RS decode, SER, pseudo-label), "sync" (inside
+    "detect": the read of the SER), "adapt" (self-supervision) and "meta"
+    (meta adaptation), for timing."""
     n_words, T = rx_words.shape
     cap, L, w = cfg.buffer_capacity, cfg.memory_length, cfg.window_size
-    nsym, subframes = cfg.n_symbols, cfg.subframes_in_frame
+    subframes = cfg.subframes_in_frame
     thresh = np.float32(cfg.ser_thresh)
     trainable = spec.trainable
     meta = trainable and cfg.online_meta
@@ -166,6 +216,7 @@ def run_online(cfg: Config, spec, params, tx_words: torch.Tensor, rx_words: torc
 
     model = copy.deepcopy(params) if trainable else None
     p = spec.model.param_dict(model) if trainable else None
+    score_block = make_block_scorer(cfg, spec, model)
     optimizer = opt_state = None
     if meta or self_sup:
         optimizer = Optimizer(cfg.optimizer_type, cfg.lr, cfg.clip_grad_norm)
@@ -216,23 +267,14 @@ def run_online(cfg: Config, spec, params, tx_words: torch.Tensor, rx_words: torc
         rx, tx = rx_words[count:count + 1], tx_words[count]
         is_data = count % subframes != 0
         with spans("detect"):
-            detected = spec.engine_detect(model, rx, h_words[count:count + 1])[0]
-            decoded = rs_decode_bits(detected[None], nsym)[0][0] if cfg.use_ecc \
-                else detected[:tx.shape[0]]
+            ser_t, label, _ = score_block(is_data, rx, tx, h_words[count:count + 1])
             if is_data:
                 with spans("sync"):  # the block's one host sync
-                    errors = int((decoded != tx).sum())
-                # k * f32(1/n), the rounding of jnp.mean (not the k/n of torch.mean)
-                sers[count] = np.float32(errors) * np.float32(1.0 / tx.shape[0])
+                    sers[count] = ser_t.item()
         ser = sers[count]
         gate = ser <= thresh
         if gate:
             n_gated += 1
-            if is_data and ser > 0:
-                label = detected
-            else:
-                source = decoded if is_data else tx.to(decoded.dtype)
-                label = rs_encode_bits(source[None], nsym)[0] if cfg.use_ecc else source
             slot = (start + n_valid) % cap
             buf_rx[slot] = rx[0]
             buf_tx[slot] = label

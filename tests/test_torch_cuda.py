@@ -6,8 +6,10 @@ JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
+import contextlib
 import copy
 
+import numpy as np
 import pytest
 import torch
 
@@ -522,3 +524,122 @@ def test_a_capture_that_cannot_happen_raises(gen):
         graphed(p, state, g, bc)
     torch.cuda.synchronize()
     assert torch.equal(p["w"], torch.full((3,), -3.0 * WARMUP_STEPS, device="cuda"))
+
+
+# ------------------------------------- the per-block detect and the word sweep
+
+@pytest.mark.parametrize("kernel", ["fused_va_detect", "viterbi_decode_kernel"])
+def test_kernel_replayed_in_a_graph_equals_its_launch(gen, kernel):
+    """K2 and K5 at the engine's 1 x 136 as a graphed call, as the engine's
+    per-block detect runs them: each of WARMUP_STEPS + 4 calls on its own
+    inputs gives the bits of an eager launch on the same inputs, and the
+    kernel's launch counter reads one per execution (the warm-ups and the
+    replays; the capture, which runs nothing, counts none)."""
+    from metaviterbinet_tpu_torch.online.graphs import WARMUP_STEPS, GraphedStep
+    fn = getattr(acs, kernel)
+    n = WARMUP_STEPS + 4
+    if kernel == "fused_va_detect":
+        inputs = [chip_smoke.kernel_inputs(1, 136, gen) for _ in range(n)]
+    else:
+        inputs = [(torch.randn((1, 136, 16), generator=gen, device="cuda") ** 2,)
+                  for _ in range(n)]
+    name = f"{kernel} alone"
+    GraphedStep.counts.pop(name, None)
+    call = GraphedStep(fn, name, n_state=0)
+    before = fn.launches
+    got = [call(*x).clone() for x in inputs]
+    torch.cuda.synchronize()
+    assert fn.launches == before + n
+    assert GraphedStep.counts[name] == {"direct": 0, "warmup": WARMUP_STEPS, "capture": 1,
+                                        "replay": n - WARMUP_STEPS}
+    for x, bits in zip(inputs, got):
+        assert torch.equal(bits, fn(*x))
+
+
+def test_rs_codec_captured_alone_equals_eager(gen):
+    """rs_decode_bits and rs_encode_bits at the engine's shapes (one
+    136-bit codeword of RS nsym=2, one 120-bit word), each captured alone
+    and replayed on words with 0 to 4 flipped bytes: the eager codec's bits
+    and flags."""
+    from metaviterbinet_tpu_torch.ecc.rs import rs_decode_bits, rs_encode_bits
+    from metaviterbinet_tpu_torch.online.graphs import WARMUP_STEPS, GraphedStep
+    decode = GraphedStep(lambda b: rs_decode_bits(b, 2), "rs decode alone", n_state=0)
+    encode = GraphedStep(lambda b: rs_encode_bits(b, 2), "rs encode alone", n_state=0)
+    for flips in range(WARMUP_STEPS + 5):
+        word = torch.randint(0, 2, (1, 120), generator=gen, device="cuda").float()
+        code = rs_encode_bits(word, 2)
+        for byte in range(flips % 5):
+            code[0, 8 * (5 * byte + 1)] = 1 - code[0, 8 * (5 * byte + 1)]
+        got_bits, got_flags = (t.clone() for t in decode(code))
+        want_bits, want_flags = rs_decode_bits(code, 2)
+        assert torch.equal(got_bits, want_bits) and torch.equal(got_flags, want_flags)
+        assert torch.equal(encode(word).clone(), rs_encode_bits(word, 2))
+
+
+@pytest.mark.parametrize("name", ["vnet", "lstm"])
+def test_graphed_word_sweep_equals_the_eager_loop_on_the_card(gen, name):
+    """train/loop.py::word_sweep on the card (two warm-ups, one capture,
+    replays) against the eager loop of loss, gradient and Optimizer.step
+    over 300 words at T = 136 with their select_batch draws: params,
+    moments and the summed loss 0 apart."""
+    from metaviterbinet_tpu_torch import Config
+    from metaviterbinet_tpu_torch.detectors import DETECTORS
+    from metaviterbinet_tpu_torch.online.graphs import WARMUP_STEPS, GraphedStep
+    from metaviterbinet_tpu_torch.train.losses import make_loss_fn, select_batch
+    from metaviterbinet_tpu_torch.train.loop import word_sweep
+    cfg, spec = Config(), DETECTORS[name]
+    eager, graphed = (spec.model.param_dict(spec.init(cfg, torch.Generator(
+        device="cuda").manual_seed(3), "cuda")) for _ in range(2))
+    n_words, T = 300, 136
+    rx = torch.randn((n_words, T), generator=gen, device="cuda")
+    tx = torch.randint(0, 2, (n_words, T), generator=gen, device="cuda").float()
+    select = [select_batch(T, cfg.train_minibatch_size, gen, "cuda") for _ in range(n_words)]
+    loss_fn = make_loss_fn(spec.score, spec.label_kind, cfg.memory_length, True)
+    opt = Optimizer("Adam", cfg.lr)
+    s_eager, s_graphed = opt.init(eager), opt.init(graphed)
+    want = rx.new_zeros(())
+    for i in range(n_words):
+        loss = loss_fn(eager, rx[i:i + 1], tx[i:i + 1], select[i])
+        opt.step(eager, dict(zip(eager, torch.autograd.grad(loss, list(eager.values())))),
+                 s_eager)
+        want = want + loss.detach()
+    GraphedStep.counts.pop("word_sweep", None)
+    got = word_sweep(loss_fn, opt, graphed, s_graphed, rx, tx, select)
+    torch.cuda.synchronize()
+    assert GraphedStep.counts["word_sweep"] == {"direct": 0, "warmup": WARMUP_STEPS,
+                                                "capture": 1, "replay": n_words - WARMUP_STEPS}
+    assert torch.equal(got, want)
+    for a, b in ((eager, graphed), (s_eager.mu, s_graphed.mu), (s_eager.nu, s_graphed.nu)):
+        assert chip_smoke.tensors_apart(list(a.values()), list(b.values())) == 0.0
+
+
+@pytest.mark.parametrize("name", ["va", "vnet", "lstm"])
+def test_engine_blocks_graphed_equal_the_blocks_uncaptured(gen, name):
+    """run_online's detect, RS decode and score as graphed calls (va: K2,
+    vnet: the MLP and K5, lstm: cuDNN) against the same calls with capture
+    patched out (chip_smoke.no_capture), on 15 blocks (3 pilots, 12 data
+    blocks) at the protocol's width with seeded random params and no
+    adaptation: SERs per block equal and the same launches, one K2 or K5
+    per block, none for the LSTM."""
+    from metaviterbinet_tpu_torch import Config
+    from metaviterbinet_tpu_torch.evaluation.trainer import Trainer
+    from metaviterbinet_tpu_torch.online.engine import run_online
+    cfg = Config(val_frames=3, subframes_in_frame=5, use_ecc=True, n_symbols=2,
+                 self_supervised=False, online_meta=False)
+    trainer = Trainer(cfg, name, verbose=False)
+    params = trainer.spec.init(cfg, gen, "cuda") if trainer.spec.trainable else None
+    tx, rx = trainer.val_dataset.get(10.0, cfg.gamma)
+    h = trainer.decoder_csi(tx.shape[0])
+    runs = {}
+    for captured in (True, False):
+        chip_smoke.zero_launches()
+        with contextlib.nullcontext() if captured else chip_smoke.no_capture():
+            result = run_online(cfg, trainer.spec, params, tx, rx, h, trainer.draws)
+        runs[captured] = (result.ser_by_word, chip_smoke.read_launches())
+    assert tx.shape[0] == 15
+    assert np.array_equal(runs[True][0], runs[False][0])
+    assert runs[True][1] == runs[False][1]
+    want = {"va": "fused_va_detect", "vnet": "viterbi_decode_kernel"}.get(name)
+    assert sum(runs[True][1].values()) == (15 if want else 0)
+    if want:
+        assert runs[True][1][want] == 15

@@ -7,7 +7,11 @@ operations in the same order, so no tolerance).
     host floats of Optimizer.step, over 300 steps;
   - a block's select_batch draws made up front against one per step;
   - the self-supervised step and the MAML pair step, vnet and lstm,
-    against the eager loop of loss, gradient and Optimizer.step.
+    against the eager loop of loss, gradient and Optimizer.step;
+  - the offline word sweep through its graphed step, vnet and lstm, against
+    the eager Optimizer.step loop over 300 words;
+  - a graphed call whose state is a parameter dict or nothing (the engine's
+    per-block detect), called directly.
 
 Their card counterparts (a replayed graph against the same step called
 directly) are in tests/test_torch_cuda.py.
@@ -20,7 +24,8 @@ from metaviterbinet_tpu_torch import Config
 from metaviterbinet_tpu_torch.detectors import DETECTORS
 from metaviterbinet_tpu_torch.online.engine import Draws, make_self_supervised_step
 from metaviterbinet_tpu_torch.online.graphs import GraphedStep, device_rows
-from metaviterbinet_tpu_torch.train.losses import make_loss_fn
+from metaviterbinet_tpu_torch.train.loop import word_sweep
+from metaviterbinet_tpu_torch.train.losses import make_loss_fn, select_batch
 from metaviterbinet_tpu_torch.train.meta import make_maml_step
 from metaviterbinet_tpu_torch.train.optim import Optimizer
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
@@ -145,3 +150,46 @@ def test_a_step_on_the_cpu_is_a_direct_call():
     assert torch.equal(p["w"], torch.full((3,), -4.0))
     assert GraphedStep.counts["cpu test"] == {"direct": 4, "warmup": 0, "capture": 0,
                                               "replay": 0}
+
+
+@pytest.mark.parametrize("name", ["vnet", "lstm"])
+def test_word_sweep_is_bit_equal_to_the_eager_step_loop(name):
+    """train/loop.py::word_sweep, one graphed step per word (its plain
+    version here), against the eager loop it replaced (loss, gradient,
+    Optimizer.step per word) over 300 words with their select_batch draws:
+    params, moments and the summed loss bit-equal."""
+    spec, (eager, graphed) = _twins(name, 12)
+    T, n_words = 24, 300
+    rx, tx = _words(n_words, T, 13)
+    loss_fn = make_loss_fn(spec.score, spec.label_kind, L, spec.subsample_loss)
+    gen = torch.Generator().manual_seed(14)
+    select = [select_batch(T, 8, gen) for _ in range(n_words)]
+    opt = Optimizer("Adam", 1e-3)
+    s_eager, s_graphed = opt.init(eager), opt.init(graphed)
+    want = rx.new_zeros(())
+    for i in range(n_words):
+        loss = loss_fn(eager, rx[i:i + 1], tx[i:i + 1], select[i])
+        grads = torch.autograd.grad(loss, list(eager.values()))
+        opt.step(eager, dict(zip(eager, grads)), s_eager)
+        want = want + loss.detach()
+    GraphedStep.counts.pop("word_sweep", None)
+    got = word_sweep(loss_fn, opt, graphed, s_graphed, rx, tx, select)
+    assert GraphedStep.counts["word_sweep"]["direct"] == n_words
+    assert torch.equal(got, want)
+    _assert_state_equal(eager, graphed, s_eager, s_graphed)
+
+
+@pytest.mark.parametrize("state", ["params", "none"])
+def test_a_call_with_no_optimizer_state_on_the_cpu_is_a_direct_call(state):
+    """A graphed call whose state is one parameter dict (the engine's
+    detect of a trainable detector) or none (the VA's): on the CPU the
+    function runs directly on the caller's tensors, each call."""
+    GraphedStep.counts.pop("cpu detect", None)
+    p = {"w": torch.tensor([2.0, -1.0])}
+    args = (p,) if state == "params" else ()
+    call = GraphedStep(lambda *a: (a[-1] * 3.0).sum(), "cpu detect", n_state=len(args))
+    for i in range(3):
+        x = torch.full((2,), float(i))
+        assert torch.equal(call(*args, x), (x * 3.0).sum())
+    assert GraphedStep.counts["cpu detect"] == {"direct": 3, "warmup": 0, "capture": 0,
+                                                "replay": 0}

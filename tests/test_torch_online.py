@@ -291,3 +291,42 @@ def test_every_evaluate_starts_from_the_callers_params(second):
     np.testing.assert_array_equal(got, want)
     for k, v in viterbinet.param_dict(params).items():
         assert torch.equal(v, start[k]), k
+
+
+# flipped bits of the detected codeword per case: none (ser 0, the label the
+# detected word re-encoded), one byte's worth (corrected: ser 0, the label
+# differs from the detected word), three bytes (beyond RS(nsym=2): ser > 0,
+# the label the raw detected word)
+DDS_FLIPS = {"clean": [], "corrected": [3, 5], "beyond": [1, 10, 20]}
+
+
+@pytest.mark.parametrize("is_data", [True, False])
+@pytest.mark.parametrize("case", sorted(DDS_FLIPS))
+def test_detect_decode_score_matches_the_jax_scan_body(is_data, case):
+    """online/engine.py::detect_decode_score (the graphed block's plain
+    version) against the JAX engine's rule (its online/engine.py:87-106)
+    composed from its rs_decode_bits and rs_encode_bits, on a detected
+    codeword with bits flipped, for data and pilot blocks: the SER bit-equal
+    and the label equal."""
+    from metaviterbinet_tpu.ecc.rs import rs_decode_bits as j_rs_decode_bits
+    from metaviterbinet_tpu_torch.online.engine import detect_decode_score
+    nsym, n = 2, 24
+    rng = np.random.default_rng(11)
+    tx = rng.integers(0, 2, size=n).astype(np.float32)
+    detected = np.asarray(j_rs_encode_bits(jnp.asarray(tx), nsym)).astype(np.float32)
+    detected[DDS_FLIPS[case]] = 1 - detected[DDS_FLIPS[case]]
+
+    decoded, _ = j_rs_decode_bits(jnp.asarray(detected), nsym)
+    want_ser = jnp.where(is_data, jnp.mean((decoded != tx).astype(jnp.float32)), 0.0)
+    source = jnp.where(is_data, decoded, jnp.asarray(tx).astype(decoded.dtype))
+    encoded = j_rs_encode_bits(source, nsym).astype(jnp.float32)
+    want_label = jnp.where(is_data & (want_ser > 0), jnp.asarray(detected), encoded)
+
+    ser, label, got_detected = detect_decode_score(
+        lambda y, h: torch.tensor(detected)[None], torch.zeros((1, detected.size)),
+        torch.tensor(tx), torch.zeros((1, 4)), nsym, True, is_data)
+    assert ser.dtype == torch.float32 and ser.shape == ()
+    assert np.float32(ser) == np.float32(want_ser)
+    assert (float(ser) > 0) == (is_data and case == "beyond")
+    assert torch.equal(label, torch.tensor(np.asarray(want_label)))
+    assert torch.equal(got_detected, torch.tensor(detected))
