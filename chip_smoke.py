@@ -4,7 +4,8 @@
 
 Phases, each of which fails the run on error:
   1. card     print the card's name and power limit (nvidia-smi);
-  2. build    compile the five CUDA kernels from
+  2. build    compile the five CUDA kernels and the IF-node helper
+              (online/graphs.py::when) from
               metaviterbinet_tpu_torch/kernels/csrc (one nvcc per source,
               started together);
   3. kernels  hold each kernel against its plain PyTorch version on the card:
@@ -47,11 +48,17 @@ Phases, each of which fails the run on error:
               gated block on a subsampled loss, so no K6) and va in joint
               mode (K2 per block, nothing trained), each against its
               recorded reference band; launch counts (kernel executions,
-              inside graphs too), buffer fill, seconds of train-on-miss (the
-              word sweep, one graphed step per word), of the 300 blocks and
-              of their parts (CUDA events), the graphed calls (warm-up,
-              capture, replay: the per-block detect, RS decode and score,
-              the steps, the word sweep) and milliseconds a call, and the
+              inside graphs and their IF nodes too), the engine's host
+              reads (1 a run, 1 + the candidate meta slots in meta mode),
+              the block loop under torch.cuda.set_sync_debug_mode("error")
+              from the block after its last capture to the end-of-run read
+              (SyncChecked), buffer fill, seconds of train-on-miss (the
+              word sweep, chunk graphs), of the 300 blocks (host clock to a
+              synchronise, and CUDA events) and of their parts (CUDA
+              events), the graphed calls (warm-up, capture, replay: the
+              per-block detect, RS decode, score, gate and append, the
+              steps under the gate, the word sweep) and milliseconds a
+              call, and the
               device's idle share and activities a block (torch.profiler, a
               second run over PROFILED_BLOCKS blocks); then the first 25
               blocks of meta_vnet, vnet online, vnet joint and va joint
@@ -90,6 +97,11 @@ Phases, each of which fails the run on error:
               for JointRNN and LSTM), seconds and idle share, and one more
               call read from the curve cache with no launch (see
               phase_sweep for the depth cut);
+  5d. alone  after the wait for phases 5b and 5c, the by-word cells
+              meta_vnet, vnet joint, vnet online, va joint and lstm online
+              once more alone on the card from their checkpoints (their
+              mean BERs equal to phase 5's), timed, and vnet's
+              train-on-miss in a fresh weights directory;
   6. cli      in the vnet weights directory of phase 5: `evaluate` of the
               trained checkpoint, aggregated through K4 (no training), in
               process, against the vnet joint band and against the same
@@ -121,7 +133,9 @@ Phases, each of which fails the run on error:
               by-word engine (STEP_KINDS: the vnet and lstm self-supervised
               steps, the meta_vnet and meta_lstm second-order MAML steps) at
               T = 136, eager (capture patched out) and replayed, in ms a
-              step, and one of each under torch.profiler (device activities
+              step, the self-supervised steps also as the engine's chunk
+              graph under the gate's IF node, and one of each under
+              torch.profiler (device activities
               and busy time); from them an estimate of a 300-block meta_lstm
               run (the full run goes through the CLI, in a call of its own:
               it would take the script past its time budget);
@@ -134,7 +148,10 @@ Phases, each of which fails the run on error:
               words), K5 at 1 x 136 and 300 x 136, K6 at
               T = 136 with 200 steps (with its cluster size, its bound at
               the cluster's share of the card and at one SM's, and its time
-              per step); viterbi_decode_lowlat at 1 x 136 beside K5 on the
+              per step), and K6 with its start powers read from device
+              memory at the device count against its plain version (40 and
+              a resumed 40 steps), two launches bit-identical and its
+              float64 witness; viterbi_decode_lowlat at 1 x 136 beside K5 on the
               same priors, and chunked_decode_reference (one K5 over 4096
               chains of 288 steps) beside sequential K5 at 128 x 8192;
   8b. bench   `python -m metaviterbinet_tpu_torch bench` in a process of its
@@ -175,8 +192,8 @@ from metaviterbinet_tpu_torch.models import lstm, va, viterbinet
 from metaviterbinet_tpu_torch.detectors import DETECTORS
 from metaviterbinet_tpu_torch.online import graphs
 from metaviterbinet_tpu_torch.online.engine import (
-    Draws, make_self_supervised_step, run_online, uses_fused_adaptation)
-from metaviterbinet_tpu_torch.online.graphs import GraphedStep, device_rows
+    Draws, make_adapt_step, run_online, uses_fused_adaptation)
+from metaviterbinet_tpu_torch.online.graphs import GraphedStep, chunk_steps
 from metaviterbinet_tpu_torch.ops.trellis import calculate_states, viterbi_decode_lowlat
 from metaviterbinet_tpu_torch.parallel import decode as parallel_decode
 from metaviterbinet_tpu_torch.parallel.decode import (
@@ -420,6 +437,48 @@ class CudaSpans:
                        self.host_s[name]) for name, pairs in self.events.items()}
 
 
+class SyncChecked:
+    """`spans` for the online engine, around another (CudaSpans): from the
+    first block at which every graph of the run so far has had its warm-up
+    calls and its capture (GraphedStep.counts) to the end of the run, the
+    block loop runs under torch.cuda.set_sync_debug_mode("error"), so that
+    any host synchronisation raises, except inside its "sync" spans (the
+    engine's host reads: a candidate meta slot's and the end of the run's)
+    and "meta" spans (a meta slot's adaptation, whose MAML step may still
+    capture). A context manager: the mode is reset on exit. `armed_at` is
+    the block from which the check ran (None: never)."""
+
+    def __init__(self, inner):
+        self.inner, self.armed_at, self.block = inner, None, -1
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode(0)
+
+    @staticmethod
+    def all_captured() -> bool:
+        counts = GraphedStep.counts.values()
+        return bool(counts) and all(
+            c["capture"] and c["warmup"] == graphs.WARMUP_STEPS * c["capture"] for c in counts)
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        if name == "detect":
+            self.block += 1
+            if self.armed_at is None and self.all_captured():
+                self.armed_at = self.block
+                torch.cuda.set_sync_debug_mode("error")
+        paused = self.armed_at is not None and name in ("sync", "meta")
+        if paused:
+            torch.cuda.set_sync_debug_mode(0)
+        with self.inner(name):
+            yield
+        if paused:
+            torch.cuda.set_sync_debug_mode("error")
+
+
 # --------------------------------------------------------------- bounds
 
 def va_bound_ms(W: int, T: int, S: int) -> tuple[float, str]:
@@ -581,6 +640,7 @@ def witness_holds(d: dict) -> bool:
 def _copy_state(params: dict, state):
     p = {k: v.clone() for k, v in params.items()}
     s = copy.copy(state)
+    s.count = state.count.clone()
     s.mu = {k: v.clone() for k, v in state.mu.items()}
     s.nu = {k: v.clone() for k, v in state.nu.items()}
     return p, s
@@ -741,8 +801,8 @@ def phase_kernels(model: viterbinet.ViterbiNet, trained: viterbinet.ViterbiNet,
         online_sgd.online_adapt_viterbinet(pk, sk, y, states, n, 1e-3)
         online_sgd.online_adapt_viterbinet_plain(pp, sp, y, states, n, 1e-3)
         errs[label] = _max_diff(pk, pp)
-    if (sk.count, sp.count) != (80, 80):
-        fail(f"online_adapt_viterbinet: step counts {sk.count}, {sp.count}")
+    if (int(sk.count), int(sp.count)) != (80, 80):
+        fail(f"online_adapt_viterbinet: step counts {int(sk.count)}, {int(sp.count)}")
     # two launches from the same inputs give the same bits: the cluster sums
     # its partial gradients in a fixed order, with no atomics
     (pa, sa), (pb, sb) = _copy_state(params, state), _copy_state(params, state)
@@ -992,22 +1052,40 @@ def run_by_word(name: str, mode: str, weights_dir: str, band: tuple) -> dict:
     train_steps = read_steps()
 
     spans = CudaSpans()
-    trainer.spans = spans
     zero_launches()
     zero_steps()
-    t0 = time.perf_counter()
-    sers = trainer.evaluate()
-    torch.cuda.synchronize()
-    blocks_s = time.perf_counter() - t0
+    events = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with SyncChecked(spans) as checked:
+        trainer.spans = checked
+        t0 = time.perf_counter()
+        events[0].record()
+        sers = trainer.evaluate()
+        events[1].record()
+        torch.cuda.synchronize()
+        blocks_s = time.perf_counter() - t0
+    blocks_event_s = events[0].elapsed_time(events[1]) / 1e3
     launches = read_launches()
     steps = read_steps()
     result = trainer.online_result
     parts = spans.seconds()
     mean_ber = float(np.mean(sers[di]))
+    n_words = cfg.n_words("val")
+    want_reads = 1
+    if mode == "meta":  # the candidate meta slots
+        want_reads += sum(1 for c in range(n_words)
+                          if c % cfg.meta_subframes == 0 and c >= cfg.meta_subframes)
     print(f"{name} {mode} mode: train-on-miss {train_s:.3f} s (launches {train_launches}); "
-          f"300 blocks {blocks_s:.3f} s; parts (count, s on the device timeline from CUDA "
-          f"events, s on the host clock): "
+          f"300 blocks {blocks_s:.3f} s on the host clock to a synchronise, "
+          f"{blocks_event_s:.3f} s between CUDA events; host reads {result.host_reads} "
+          f"(expected {want_reads}); sync debug mode 'error' from block {checked.armed_at} to "
+          f"the end-of-run read; parts (count, s on the device timeline from CUDA "
+          f"events, s on the host clock, which measures the enqueue): "
           f"{parts}")
+    if result.host_reads != want_reads:
+        fail(f"{name} {mode}: {result.host_reads} host reads, expected {want_reads}")
+    if checked.armed_at is None or checked.armed_at >= n_words - 1:
+        fail(f"{name} {mode}: the block loop never ran under sync debug mode 'error' "
+             f"(armed at {checked.armed_at})")
     print(f"{name} {mode} mode: graphed steps {steps_line(steps, parts)}")
     if miss:
         print(f"{name} {mode} mode: train-on-miss graphed steps {steps_line(train_steps, None)}")
@@ -1037,7 +1115,9 @@ def run_by_word(name: str, mode: str, weights_dir: str, band: tuple) -> dict:
     if train_launches != want_train:
         fail(f"{name} {mode}: train-on-miss launches {train_launches}, expected {want_train}")
     return {"cfg": cfg, "trainer": trainer, "sers": sers, "mean_data_ber": mean_ber,
-            "train_s": train_s, "blocks_s": blocks_s, "parts": parts, "launches": launches,
+            "train_s": train_s, "blocks_s": blocks_s, "blocks_event_s": blocks_event_s,
+            "host_reads": result.host_reads, "sync_checked_from_block": checked.armed_at,
+            "parts": parts, "launches": launches,
             "train_launches": train_launches, "n_buffer": result.n_buffer,
             "n_gated": result.n_gated, "steps": steps, "train_steps": train_steps}
 
@@ -1055,6 +1135,15 @@ def profiled_blocks(cell: str, name: str, cfg: Config, weights_dir: str | None =
     n = PROFILED_BLOCKS[cell]
     snr = float(cfg.snr_range("val")[0])
     trainer = Trainer(cfg, name, weights_dir=weights_dir, verbose=False)
+    if cfg.self_supervised and not uses_fused_adaptation(cfg, trainer.spec):
+        # under torch.profiler (CUPTI) the run faults with an illegal address
+        # where a block replays its chunk graph of steps, which holds the
+        # gate's IF node, several times (vnet at 25 steps a chunk, lstm at
+        # 20 and 2; PERF.md section 6); the same runs without the
+        # profiler pass, and K6's one replay a block passes under it
+        print(f"{cell}: device busy not measured (torch.profiler faults on the chunk graphs "
+              f"of steps under the gate's IF node)")
+        return {"blocks": 0, "device_busy_ms": None, "idle_share": None}
     params = trainer.load_weights(snr, cfg.gamma) if trainer.spec.trainable else None
     tx, rx = trainer.val_dataset.get(snr, cfg.gamma)
     h = trainer.decoder_csi(tx.shape[0])
@@ -1107,12 +1196,15 @@ STEP_TIMED = {"vnet self-supervised": (100, 400), "lstm self-supervised": (50, 2
 STEP_TOL = {("meta_lstm maml", True): 1e-6}
 
 
-def step_case(kind: str, gen: torch.Generator, n_steps: int, second_order: bool = True):
+def step_case(kind: str, gen: torch.Generator, n_steps: int, second_order: bool = True,
+              chunk: int = 1):
     """One of STEP_KINDS at the protocol's shapes (T = 136, Config's
     train_minibatch_size and window_size) with seeded random params and
     inputs on the card, as the engine builds it: returns (params,
     opt_state, run), where run(i) takes step i < n_steps on its own word
-    (and its own select_batch draw)."""
+    (and its own select_batch draw). A self-supervised step is the engine's
+    adapt step (online/engine.py::make_adapt_step) under an open gate; with
+    `chunk`, run(i) takes that many steps on word i, one graphed call."""
     cfg = Config()
     family, what = kind.split(" ", 1)
     spec = DETECTORS[family]
@@ -1125,13 +1217,18 @@ def step_case(kind: str, gen: torch.Generator, n_steps: int, second_order: bool 
     if what == "self-supervised":
         loss_fn = make_loss_fn(spec.score, spec.label_kind, cfg.memory_length,
                                spec.subsample_loss, cfg.loss_type)
-        step = make_self_supervised_step(loss_fn, opt)
-        idx = torch.stack([select_batch(T_PROTO, cfg.train_minibatch_size, gen, "cuda")
-                           for _ in range(n_steps)])
-        bc = device_rows(opt.advance(state, n_steps), torch.device("cuda"))
+        adapt = make_adapt_step(cfg, opt, loss_fn, False, chunk)
+        idx = None
+        if spec.subsample_loss:
+            idx = torch.stack([select_batch(T_PROTO, cfg.train_minibatch_size, gen, "cuda")
+                               for _ in range(n_steps * chunk)])
+        st = {"gate": torch.ones((), dtype=torch.bool, device="cuda"),
+              "rx": rx.new_zeros((1, T_PROTO)), "label": rx.new_zeros((1, T_PROTO))}
 
         def run(i: int) -> None:
-            step(params, state, rx[i:i + 1], tx[i:i + 1], idx[i], bc[i])
+            st["rx"].copy_(rx[i:i + 1])
+            st["label"].copy_(tx[i:i + 1])
+            adapt(params, state, st, None if idx is None else idx[i * chunk:(i + 1) * chunk])
     else:
         loss_fn = make_loss_fn(spec.meta_score, spec.label_kind, cfg.memory_length, False,
                                cfg.loss_type)
@@ -1223,7 +1320,33 @@ def phase_steps(card: str) -> dict:
         out[kind] = {"eager_s": eager_s, "graphed_s": graphed_s, "first_s": first_s,
                      "eager_busy": eager_busy, "graphed_busy": graphed_busy, "calls": counts,
                      **apart}
+        if kind.endswith("self-supervised"):
+            out[kind]["chunk"] = chunk_line(kind, gen, graphed_s, card)
     return out
+
+
+def chunk_line(kind: str, gen: torch.Generator, single_s: float, card: str) -> dict:
+    """The engine's self-supervised loop as it runs on the card: a graph of
+    chunk_steps(200, STEP_NODES) steps back to back under the gate's IF
+    node, replayed 200 / chunk times a gated block; its seconds per step
+    (host clock to a synchronise, after the warm-ups and the capture)
+    beside the single-step replay's."""
+    chunk = chunk_steps(K6_ITERS, DETECTORS[kind.split(" ")[0]].model.STEP_NODES)
+    calls = max(3, 2 * K6_ITERS // chunk)
+    warm = graphs.WARMUP_STEPS + 1
+    zero_steps()
+    _, _, run = step_case(kind, gen, warm + calls, chunk=chunk)
+    t0 = time.perf_counter()
+    for i in range(warm):
+        run(i)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    per_step = _steps_s(run, warm, calls) / chunk
+    print(f"{kind}: a chunk graph of {chunk} steps under the gate's IF node, {1e3 * per_step:.3f} "
+          f"ms a step over {calls * chunk} steps, beside {1e3 * single_s:.3f} ms a step "
+          f"replayed one by one ({single_s / per_step:.2f}x); the warm-ups, the capture and its "
+          f"replay {first_s:.3f} s; calls {read_steps()} [{card}]")
+    return {"chunk": chunk, "s_per_step": per_step, "first_s": first_s, "steps": calls * chunk}
 
 
 # the engine's spans that hold each graphed call's calls (the word sweep
@@ -1421,6 +1544,66 @@ def phase_online(weights_dir: str, card: str) -> dict:
         out[name] = {k: v for k, v in run.items() if k not in ("cfg", "trainer", "sers")}
     out["card_vs_cpu"] = {"blocks": n, "max_block_ser_diff": block_diff,
                           "mean_data_ser_diff": mean_diff}
+    return out
+
+
+# the by-word cells timed again alone on the card (phase 5d): (detector,
+# mode, the key of its phase 5 or 5b result, its band)
+ALONE_CELLS = (("meta_vnet", "meta", "meta_vnet_meta", META_VNET_BAND),
+               ("vnet", "joint", "vnet_joint", VNET_JOINT_BAND),
+               ("vnet", "online", "vnet_online", VNET_ONLINE_BAND),
+               ("va", "joint", "va_joint", VA_JOINT_BAND),
+               ("lstm", "online", "lstm_online", LSTM_ONLINE_BAND))
+
+
+def phase_alone(weights_dir: str, online: dict, lstm_out: dict, card: str) -> dict:
+    """The by-word cells once more, alone on the card after phases 5b and
+    5c have ended (phase 5 shares the card with their processes): each from
+    its checkpoint, through Trainer.evaluate, timed on the host clock to a
+    synchronise and between CUDA events, with its host reads. Where phase
+    5 loaded the checkpoint too, the mean BER must equal phase 5's (the
+    same blocks and draws); where it trained on the miss, whose scoring
+    drew val batches first, the run reads another batch and is held to its
+    band. Then vnet's train-on-miss (the chunked word sweep) in a fresh
+    weights directory."""
+    out = {}
+    for name, mode, key, band in ALONE_CELLS:
+        cfg = online_cfg(mode, f"{weights_dir}/{name}")
+        trainer = Trainer(cfg, name, verbose=False)
+        if trainer.spec.trainable:
+            trainer.load_weights(10.0, cfg.gamma)
+        events = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        events[0].record()
+        sers = trainer.evaluate()
+        events[1].record()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        event_s = events[0].elapsed_time(events[1]) / 1e3
+        result = trainer.online_result
+        mean_ber = float(np.mean(sers[cfg.data_indices("val")]))
+        phase5 = (lstm_out if name == "lstm" else online)[key]
+        same_blocks = not phase5["train_steps"]
+        print(f"alone: {name} {mode} mode, 300 blocks {seconds:.3f} s on the host clock to a "
+              f"synchronise, {event_s:.3f} s between CUDA events; host reads "
+              f"{result.host_reads}; {result.n_gated} gated; mean data BER {mean_ber:.6f} "
+              f"({'phase 5 on the same blocks' if same_blocks else 'phase 5 on the batch after its train-on-miss'}: "
+              f"{phase5['mean_data_ber']:.6f}; band {band[0]} +- {band[1]}) [{card}]")
+        if (mean_ber != phase5["mean_data_ber"]) if same_blocks \
+                else abs(mean_ber - band[0]) > band[1]:
+            fail(f"{name} {mode}: alone {mean_ber}, in phase 5 {phase5['mean_data_ber']}")
+        out[key] = {"s": seconds, "event_s": event_s, "host_reads": result.host_reads,
+                    "n_gated": result.n_gated, "mean_data_ber": mean_ber}
+    trainer = Trainer(online_cfg("joint", f"{weights_dir}/vnet_alone"), "vnet", verbose=False)
+    zero_steps()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.load_weights(10.0, trainer.cfg.gamma)
+    torch.cuda.synchronize()
+    out["vnet_train_on_miss_s"] = time.perf_counter() - t0
+    print(f"alone: vnet train-on-miss {out['vnet_train_on_miss_s']:.3f} s, graphed steps "
+          f"{steps_line(read_steps(), None)} [{card}]")
     return out
 
 
@@ -2133,13 +2316,20 @@ def phase_width(model: viterbinet.ViterbiNet, gen: torch.Generator, card: str) -
     times["lowlat"], times["chunked_decode"] = lowlat, chunked
     params, y, states = adapt_inputs()
     state = Optimizer("Adam", 1e-3).init(params)
+    # the plain version reads the count to the host: timed with a count on
+    # the host, so that a graph can hold it (the kernel's count stays on the
+    # card, gathered and advanced there)
+    plain_state = copy.copy(state)
+    plain_state.count = torch.zeros((), dtype=torch.int32)
     bound = adapt_bound_ms(T_PROTO, 16, K6_ITERS)
     record("online_adapt_viterbinet", 1,
            lambda: online_sgd.online_adapt_viterbinet(params, state, y, states, K6_ITERS, 1e-3,
                                                       ADAM_B1, ADAM_B2, ADAM_EPS),
-           lambda: online_sgd.online_adapt_viterbinet_plain(params, state, y, states, K6_ITERS,
-                                                            1e-3, ADAM_B1, ADAM_B2, ADAM_EPS),
+           lambda: online_sgd.online_adapt_viterbinet_plain(params, plain_state, y, states,
+                                                            K6_ITERS, 1e-3, ADAM_B1, ADAM_B2,
+                                                            ADAM_EPS),
            bound, per_graph=2, plain_per_graph=1)
+    times[("online_adapt_viterbinet", 1)]["checked"] = k6_new_abi(card)
     cluster = online_sgd.CLUSTER_SIZE
     k6 = times[("online_adapt_viterbinet", 1)]
     print(f"online_adapt_viterbinet: {adapt_ops(T_PROTO, 16, K6_ITERS):.4e} f32 operations for "
@@ -2148,6 +2338,36 @@ def phase_width(model: viterbinet.ViterbiNet, gen: torch.Generator, card: str) -
           f"{bound[0] * N_SMS:.4f} ms at one SM's share; {1e3 * k6['ms'] / K6_ITERS:.3f} us per "
           f"step on the device [{card}]")
     return times
+
+
+def k6_new_abi(card: str) -> dict:
+    """K6 with its start powers gathered from device memory at the device
+    count, at the engine's T = 136: 40 steps and a resumed 40 (from a
+    device count of 40) against its plain version, two launches from the
+    same inputs bit-identical, and the float64 witness (40 + 40 steps) on
+    the first witness word."""
+    params, y, states = adapt_inputs(1)
+    state = Optimizer("Adam", 1e-3).init(params)
+    (pk, sk), (pp, sp), (pb, sb) = (_copy_state(params, state) for _ in range(3))
+    out = {}
+    for label in ("40 steps", "resumed 40 + 40"):
+        for p, s in ((pk, sk), (pb, sb)):
+            online_sgd.online_adapt_viterbinet(p, s, y, states, 40, 1e-3)
+        online_sgd.online_adapt_viterbinet_plain(pp, sp, y, states, 40, 1e-3)
+        out[label] = _max_diff(pk, pp)
+    same = all(torch.equal(a[k], b[k]) for a, b in ((pk, pb), (sk.mu, sb.mu), (sk.nu, sb.nu))
+               for k in pk)
+    counts = (int(sk.count), int(sp.count))
+    witness = k6_witness(*k6_witness_word(*K6_WITNESS_WORDS[0]))
+    print(f"online_adapt_viterbinet (start powers from device memory) T={T_PROTO}: max |dparam| "
+          f"vs the plain version {out} (limits {K6_LIMITS['40 steps']:g}, "
+          f"{K6_LIMITS['resumed 40 + 40']:g}), counts {counts}, two launches bit-identical "
+          f"{same}; float64 witness on word {K6_WITNESS_WORDS[0]} {witness}, holds "
+          f"{witness_holds(witness)} [{card}]")
+    if (not same or counts != (80, 80) or not witness_holds(witness)
+            or any(err > K6_LIMITS[label] for label, err in out.items())):
+        fail(f"online_adapt_viterbinet with device powers: {out}, {counts}, {same}, {witness}")
+    return dict(out, two_launches_equal=same, counts=counts, witness=witness)
 
 
 REPLACES = {"fused_va_detect": "metaviterbinet_tpu/kernels/acs.py:409",
@@ -2245,6 +2465,7 @@ def kernel_rows(checks: dict, sl: dict, online: dict, sweep: dict, times: dict,
         "one_sm_bound_ms": row["bound_ms"] * N_SMS,
         "us_per_step": 1e3 * row["ms"] / K6_ITERS,
         "checked": checks[(name, 1, T_PROTO)]["by_check"],
+        "checked_device_powers": row["checked"],
         "drift": checks[(name, 1, T_PROTO)]["drift"],
     })
     for row in rows:
@@ -2294,6 +2515,7 @@ def main() -> int:
         parallel = timed("parallel", phase_parallel, trained, gen)
         lstm_out, sweep = timed("lstm and sweep (the wait after phase 7b)", finish_beside, jobs)
         torch.set_num_threads(threads)
+        online["alone"] = timed("alone", phase_alone, weights_dir, online, lstm_out, card)
     steps = timed("steps", phase_steps, card)
     lstm_out["meta_lstm"]["full_run_estimate"] = meta_lstm_estimate(steps, card)
     times = timed("width", phase_width, model, gen, card)

@@ -46,6 +46,7 @@ from metaviterbinet_tpu_torch.detectors import (
 from metaviterbinet_tpu_torch.device import resolve_device, use_f32_matmuls
 from metaviterbinet_tpu_torch.ecc.rs import rs_decode_bits, rs_encode_bits
 from metaviterbinet_tpu_torch.online.engine import Draws, OnlineResult, run_online
+from metaviterbinet_tpu_torch.online.graphs import chunk_steps
 from metaviterbinet_tpu_torch.ops.channel import estimate_channel_batch
 from metaviterbinet_tpu_torch.ops.metrics import error_rates
 from metaviterbinet_tpu_torch.parallel.decode import shard_words_decode
@@ -54,7 +55,7 @@ from metaviterbinet_tpu_torch.paths import WEIGHTS_DIR
 from metaviterbinet_tpu_torch.train.checkpoint import (
     load_checkpoint, save_config_provenance, save_params)
 from metaviterbinet_tpu_torch.train.losses import make_loss_fn, select_batch
-from metaviterbinet_tpu_torch.train.loop import make_sgd_step, word_sweep
+from metaviterbinet_tpu_torch.train.loop import make_sweep_step, word_sweep
 from metaviterbinet_tpu_torch.train.meta import make_maml_step, sorted_unique
 from metaviterbinet_tpu_torch.train.optim import Optimizer, OptState
 
@@ -236,7 +237,8 @@ class Trainer:
         sers = result.ser_by_word
         elapsed = time.perf_counter() - t0
         self._log(f"by-word eval: mean ser {sers.mean():.6f} over {len(sers)} blocks "
-                  f"({elapsed:.1f}s, buffer fill {result.n_buffer}, {result.n_gated} gated)")
+                  f"({elapsed:.1f}s, buffer fill {result.n_buffer}, {result.n_gated} gated, "
+                  f"{result.host_reads} host reads)")
         self._metric("by_word_eval", snr=snr, mean_ser=float(sers.mean()), n_blocks=len(sers),
                      buffer_fill=int(result.n_buffer), elapsed_s=elapsed)
         return sers
@@ -252,8 +254,9 @@ class Trainer:
             return self.meta_train()
         cfg = self.cfg
         optimizer = Optimizer(cfg.optimizer_type, cfg.lr, cfg.clip_grad_norm)
-        # one graph per SNR (its params are new tensors), replayed per word
-        step = make_sgd_step(self.loss_fn, optimizer, "word_sweep")
+        # one graph per SNR (its params are new tensors) of a chunk of the
+        # sweep's steps, replayed over the words
+        step = make_sweep_step(self.loss_fn, optimizer)
         for snr in (float(s) for s in cfg.snr_range("train")):
             self._log(f"SNR - {snr}, Gamma - {cfg.gamma}")
             model = self.init_params()
@@ -266,8 +269,9 @@ class Trainer:
                 if self.spec.subsample_loss:
                     select = [select_batch(tx.shape[1], cfg.train_minibatch_size, self.generator,
                                            self.device) for _ in range(tx.shape[0])]
+                chunk = chunk_steps(rx.shape[0], self.spec.model.STEP_NODES)
                 loss = float(word_sweep(self.loss_fn, optimizer, params, opt_state, rx, tx, select,
-                                        step))
+                                        step, chunk))
                 ser = self.single_eval_at_point(model, snr, cfg.gamma)
                 self._log(f"Minibatch {minibatch}, ser - {ser}, loss {loss:.3f}")
                 self._metric("train_minibatch", snr=snr, minibatch=minibatch, ser=ser, loss=loss)

@@ -56,7 +56,8 @@ _SIGNATURES = {
     "viterbinet_detect": (_PTR,) * 8 + (_INT,) * 5 + (_PTR,),
     "viterbinet_detect_chunked": (_PTR,) * 8 + (_INT,) * 9 + (_PTR,),
     "viterbi_decode": (_PTR, _PTR, _INT, _INT, _INT, _PTR),
-    "online_adapt": (_PTR,) * 20 + (_INT,) * 3 + (_F32,) * 9 + (_PTR,),
+    "online_adapt": (_PTR,) * 20 + (_INT,) * 3 + (_F32,) * 7 + (_PTR,) * 2,
+    "if_node": (_INT, _PTR, _PTR, _PTR),  # online/graphs.py::when's conditional nodes
 }
 _loaded: dict[str, ctypes.CDLL] = {}
 # library name -> nvcc's report (registers, spills) of its last build here

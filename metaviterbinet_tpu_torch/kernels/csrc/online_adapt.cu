@@ -162,7 +162,8 @@ template <int S>
 __global__ void __launch_bounds__(kThreads, 1)
 online_adapt_kernel(const float* __restrict__ y, const int* __restrict__ states, Tensors params,
                     Tensors mu, Tensors nu, int T, int n_iters, float lr, float b1, float b2,
-                    float omb1, float omb2, float eps, float inv_t, float pow1, float pow2) {
+                    float omb1, float omb2, float eps, float inv_t,
+                    const float* __restrict__ powers) {
   using L = Layout<S>;
   constexpr int kLdl = L::kLdl;
   // this CTA's slice of the parameters for the reduction and Adam, in
@@ -218,6 +219,9 @@ online_adapt_kernel(const float* __restrict__ y, const int* __restrict__ states,
   }
   __syncthreads();
 
+  // b1^count and b2^count before the first step, from device memory (the
+  // wrapper gathers them at the optimizer's count, which lives on the card)
+  float pow1 = powers[0], pow2 = powers[1];
   for (int it = 0; it < n_iters; ++it) {
     pow1 *= b1;
     pow2 *= b2;
@@ -456,7 +460,8 @@ struct Args {
   const int* states;
   Tensors params, mu, nu;
   int T, n_iters;
-  float lr, b1, b2, omb1, omb2, eps, inv_t, pow1, pow2;
+  float lr, b1, b2, omb1, omb2, eps, inv_t;
+  const float* powers;
 };
 
 template <int S>
@@ -479,7 +484,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   config.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
       &config, online_adapt_kernel<S>, a.y, a.states, a.params, a.mu, a.nu, a.T, a.n_iters,
-      a.lr, a.b1, a.b2, a.omb1, a.omb2, a.eps, a.inv_t, a.pow1, a.pow2);
+      a.lr, a.b1, a.b2, a.omb1, a.omb2, a.eps, a.inv_t, a.powers);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -488,7 +493,8 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 // y [T] f32, states [T] int32; p_*, m_*, v_* the parameters and their two
 // Adam moments, each six f32 tensors (w1 [100, 1], b1 [100], w2 [50, 100],
 // b2 [50], w3 [S, 50], b3 [S]), contiguous, on the current device, updated
-// in place. pow1, pow2 are b1^count and b2^count before the first step.
+// in place. powers [2] f32 on the device: b1^count and b2^count before the
+// first step.
 // Returns the CUDA error of the launch (0 on success; a cluster the card
 // cannot place is refused, not replaced).
 extern "C" int online_adapt(const float* y, const int* states, float* p_w1, float* p_b1,
@@ -497,12 +503,12 @@ extern "C" int online_adapt(const float* y, const int* states, float* p_w1, floa
                             float* v_w1, float* v_b1, float* v_w2, float* v_b2, float* v_w3,
                             float* v_b3, int T, int S, int n_iters, float lr,
                             float b1, float b2, float omb1, float omb2, float eps, float inv_t,
-                            float pow1, float pow2, cudaStream_t stream) {
+                            const float* powers, cudaStream_t stream) {
   const Args a{y, states,
                {{p_w1, p_b1, p_w2, p_b2, p_w3, p_b3}},
                {{m_w1, m_b1, m_w2, m_b2, m_w3, m_b3}},
                {{v_w1, v_b1, v_w2, v_b2, v_w3, v_b3}},
-               T, n_iters, lr, b1, b2, omb1, omb2, eps, inv_t, pow1, pow2};
+               T, n_iters, lr, b1, b2, omb1, omb2, eps, inv_t, powers};
   cudaError_t err;
   switch (S) {
     case 2: err = launch<2>(a, stream); break;

@@ -11,7 +11,14 @@ each.
 
 The wrapper updates the parameters, the Adam moments and the step count of
 its arguments IN PLACE, on the card through the kernel and on the CPU
-through `online_adapt_viterbinet_plain`. The plain version is the kernel's
+through `online_adapt_viterbinet_plain`. The count is a 0-d int32 tensor on
+the device (train/optim.py::OptState), as optax's is, and the TPU kernel
+raises b1 and b2 to it on the device; here the wrapper gathers b1^count and
+b2^count from a float32 table on the card (`power_table`, built with
+`_start_powers`' expression, so the bits are the host's) into a [2] row the
+kernel reads, and advances the count with a device op after the launch. No
+host read: a CUDA graph can capture the call (online/engine.py captures it
+under the gate's conditional node). The plain version is the kernel's
 own arithmetic in PyTorch: the hand-written backward of the TPU kernel
 (softmax - onehot) / T through relu and sigmoid, and Adam with the bias
 correction from running powers b1^t, b2^t (optax computes b1^t directly,
@@ -19,6 +26,8 @@ so the two differ by rounding; tests/test_torch_kernels.py holds the plain
 version to the JAX kernel and to autograd + train/optim.py's Adam).
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -58,6 +67,31 @@ def _start_powers(b1: float, b2: float, count: int) -> tuple[np.float32, np.floa
     return np.float32(b1) ** np.float32(count), np.float32(b2) ** np.float32(count)
 
 
+@functools.lru_cache(maxsize=None)
+def start_powers_table(b1: float, b2: float) -> np.ndarray:
+    """[n, 2] float32: row c is _start_powers(b1, b2, c), for every count up
+    to the first at which both powers are 0.0f, as they are at every later
+    count (103,923 rows for Adam's b1 and b2). Built entry by entry:
+    numpy's vectorised float32 power rounds some entries apart from the
+    scalar one."""
+    rows = []
+    while not rows or rows[-1] != (0.0, 0.0):
+        rows.append(_start_powers(b1, b2, len(rows)))
+    return np.array(rows, dtype=np.float32)
+
+
+_power_tables: dict[tuple, torch.Tensor] = {}
+
+
+def power_table(b1: float, b2: float, device: torch.device) -> torch.Tensor:
+    """start_powers_table(b1, b2) on `device`, uploaded at the first call
+    there: make it before a CUDA graph captures the wrapper."""
+    key = (b1, b2, device)
+    if key not in _power_tables:
+        _power_tables[key] = torch.from_numpy(start_powers_table(b1, b2)).to(device)
+    return _power_tables[key]
+
+
 def _check(params, opt_state, y, states) -> int:
     """Validate the arguments; returns S."""
     name = "online_adapt_viterbinet"
@@ -85,7 +119,8 @@ def online_adapt_viterbinet_plain(params: dict[str, torch.Tensor], opt_state, y:
                                   states: torch.Tensor, n_iters: int, lr: float,
                                   b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> None:
     """Plain PyTorch version of the kernel; updates params, opt_state.mu,
-    opt_state.nu and opt_state.count in place."""
+    opt_state.nu and opt_state.count in place (it reads the count to the
+    host: CPU tensors)."""
     T = y.shape[0]
     S = params["w3"].shape[0]
     onehot = (torch.arange(S, device=y.device)[:, None] == states[None, :]).to(torch.float32)
@@ -97,7 +132,7 @@ def online_adapt_viterbinet_plain(params: dict[str, torch.Tensor], opt_state, y:
           for k in PARAM_NAMES]
     nu = [opt_state.nu[k].clone().reshape(-1, 1) if k[0] == "b" else opt_state.nu[k].clone()
           for k in PARAM_NAMES]
-    pow1, pow2 = _start_powers(b1, b2, opt_state.count)
+    pow1, pow2 = _start_powers(b1, b2, int(opt_state.count))
     for _ in range(n_iters):
         pow1, pow2 = pow1 * np.float32(b1), pow2 * np.float32(b2)
         c1, c2 = float(np.float32(1.0) - pow1), float(np.float32(1.0) - pow2)
@@ -122,7 +157,7 @@ def online_adapt_viterbinet_plain(params: dict[str, torch.Tensor], opt_state, y:
         params[k].copy_(p.reshape(params[k].shape))
         opt_state.mu[k].copy_(mu[i].reshape(params[k].shape))
         opt_state.nu[k].copy_(nu[i].reshape(params[k].shape))
-    opt_state.count += n_iters
+    opt_state.count.add_(n_iters)
 
 
 def online_adapt_viterbinet(params: dict[str, torch.Tensor], opt_state, y: torch.Tensor,
@@ -131,9 +166,10 @@ def online_adapt_viterbinet(params: dict[str, torch.Tensor], opt_state, y: torch
     """Run `n_iters` fused Adam steps of CE over states on one word.
 
     params: ViterbiNet's parameter dict (models/viterbinet.py::param_dict);
-    opt_state: its Adam state (train/optim.py::OptState: mu, nu, count);
-    y [T] f32 samples; states [T] int32 trellis-state labels. Updates
-    params, the moments and the count in place."""
+    opt_state: its Adam state (train/optim.py::OptState: mu, nu and the
+    0-d int32 count on y's device); y [T] f32 samples; states [T] int32
+    trellis-state labels. Updates params, the moments and the count in
+    place, with no host read."""
     name = "online_adapt_viterbinet"
     S = _check(params, opt_state, y, states)
     T = y.shape[0]
@@ -144,17 +180,22 @@ def online_adapt_viterbinet(params: dict[str, torch.Tensor], opt_state, y: torch
         raise ValueError(f"{name}: T={T} needs {smem_bytes(T, S)} bytes of shared memory per "
                          f"CTA of a {CLUSTER_SIZE}-CTA cluster, more than a CTA has "
                          f"({MAX_SMEM_BYTES})")
-    pow1, pow2 = _start_powers(b1, b2, opt_state.count)
+    count = opt_state.count
+    if count.device != y.device or count.dtype != torch.int32 or count.dim() != 0:
+        raise ValueError(f"{name}: the count must be a 0-d int32 tensor on {y.device}")
+    table = power_table(b1, b2, y.device)
+    # b1^count and b2^count, gathered on the device: the kernel reads them
+    powers = table.index_select(0, count.clamp(max=table.shape[0] - 1).reshape(1).long())
     lib = _library("online_adapt")
     ptrs = [t.data_ptr() for group in (params, opt_state.mu, opt_state.nu)
             for t in (group[k] for k in PARAM_NAMES)]
     with torch.cuda.device(y.device):
         rc = lib.online_adapt(
             y.data_ptr(), states.data_ptr(), *ptrs, T, S, n_iters,
-            lr, b1, b2, 1.0 - b1, 1.0 - b2, eps, 1.0 / T, float(pow1), float(pow2),
+            lr, b1, b2, 1.0 - b1, 1.0 - b2, eps, 1.0 / T, powers.data_ptr(),
             torch.cuda.current_stream(y.device).cuda_stream)
     _check_launch(name, rc)
-    opt_state.count += n_iters
+    count.add_(n_iters)
     online_adapt_viterbinet.launches += 1
 
 

@@ -35,6 +35,10 @@ START_VALUE_PADDING = -100.0
 LSTM_WEIGHTS = tuple(f"{kind}{layer}" for layer in range(NUM_LAYERS)
                      for kind in ("w_ih", "w_hh", "b_ih", "b_hh"))
 PARAM_NAMES = LSTM_WEIGHTS + ("w_fc", "b_fc")
+# device activities of one training step of the LSTM (loss, gradient,
+# Adam) under torch.profiler, chip_smoke.py phase 7c on an NVIDIA H100 80GB
+# HBM3: the nodes a captured step adds to a graph (online/graphs.py::chunk_steps)
+STEP_NODES = 1305
 
 
 class WindowedLSTM(nn.Module):

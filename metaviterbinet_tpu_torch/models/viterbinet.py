@@ -19,6 +19,10 @@ from metaviterbinet_tpu_torch.device import resolve_device
 HIDDEN1 = 100
 HIDDEN2 = 50
 PARAM_NAMES = ("w1", "b1", "w2", "b2", "w3", "b3")
+# device activities of one training step of the ViterbiNet (loss, gradient,
+# Adam) under torch.profiler, chip_smoke.py phase 7c on an NVIDIA H100 80GB
+# HBM3: the nodes a captured step adds to a graph (online/graphs.py::chunk_steps)
+STEP_NODES = 119
 
 
 class ViterbiNet(nn.Module):

@@ -24,39 +24,47 @@ The rules of the JAX engine, kept here:
   - META trainers restore the meta-initialised params before their
     self-supervised steps (metavnet_trainer.py:59).
 
-The JAX engine is one `lax.scan` over blocks. Here the blocks run in a
-Python loop with their tensors on the device, and the data-dependent gate is
-a host branch: the engine reads each data block's SER back to the host,
-one synchronisation per block (pilots need none), and skips the work a
-closed gate or an idle meta slot would mask.
+The JAX engine is one `lax.scan` over blocks, its gate, buffer append,
+meta slot and self-supervised loop `lax.cond`s inside it. Here the blocks
+run in a Python loop that only enqueues work on the device: the gate, the
+buffer and its fill, the SER of every block and the count of gated blocks
+are device tensors (the run state, a dict of tensors that the graphs hold),
+and the host reads them
+once, at the end of the run (`OnlineResult.host_reads`). A meta cell reads
+the buffer's fill once more at each candidate meta slot (`count %
+meta_subframes == 0` and `count >= meta_subframes`): its query draws are
+made on the host and bounded by the fill, so the slot stays a host step.
 
-Each block's detect, RS decode, SER and pseudo-label are the JAX scan
-body's `detect_decode_score`, a function of tensors here too
-(`detect_decode_score`). On the card it is a CUDA graph, one for pilot and
-one for data blocks, captured once per run and replayed once per block
-(online/graphs.py); it reads the live params in place, so one capture
-serves the whole run, across the meta events' restores. The buffer append
-after it stays eager (two row copies). On the CPU the same function runs
-directly.
-
-The two step loops inside a block are the JAX engine's scans `sgd_steps`
-and `meta_adapt`. On the card each of their steps is a CUDA graph, captured
-once per run and replayed once per step; on the CPU the same step function
-runs directly:
-  - the self-supervised step (loss, gradient, optimizer update), replayed
-    `self_supervised_iterations` times per gated block, its select_batch
-    indices drawn for the whole block before the replays;
+On the card each part of a block is a CUDA graph (online/graphs.py),
+captured once per run and replayed once per block:
+  - the block: detect, RS decode, SER and pseudo-label (the JAX scan body's
+    `detect_decode_score`), the gate `ser <= ser_thresh`, the SER and gate
+    count written to the run state, and the buffer append as device index
+    arithmetic (`append`); one graph for pilot and one for data blocks,
+    reading the live params in place, so one capture serves the whole run,
+    across the meta events' restores;
+  - the self-supervised loop, the JAX engine's `sgd_steps` under
+    `lax.cond(gate)`: its `self_supervised_iterations` steps (loss,
+    gradient, optimizer update) as graphs of `chunk_steps` steps back to
+    back, each under `when(gate)`, a CUDA graph IF node that the device
+    takes or skips by the gate, with the block's select_batch rows (drawn
+    for the whole run at its start, `Draws.select_run`) as the chunk's
+    input and Adam's bias correction read on the device by the optimizer's
+    count (train/optim.py);
+  - in a meta cell, the restore of the meta-adapted params before the
+    self-supervised loop, under the same gate;
   - the MAML pair step (train/meta.py), replayed once per distinct query
-    draw, its support and query rows copied into the graph's inputs.
-The host keeps the optimizer's count and gives each step its bias
-correction as a device tensor (train/optim.py::Optimizer.advance).
+    draw at a meta slot, its support and query rows copied into the
+    graph's inputs.
+On the CPU the same functions run directly, `when` a host branch.
 
 The self-supervised step for the meta loss (CE over states, no
 subsampling) with Adam and no clipping, in f32, is instead ONE launch of
-the fused kernel (kernels/online_sgd.py) per gated block, outside any
-graph; any other loss, optimizer or compute dtype, and the LSTM family's
-bit labels, runs the graphed step (the LSTM's through its cuDNN forward).
-The MAML step goes through the spec's `meta_score`.
+the fused kernel (kernels/online_sgd.py) per block under the gate's IF
+node, which reads its start powers from the device count; any other loss,
+optimizer or compute dtype, and the LSTM family's bit labels, runs the
+autograd steps (the LSTM's through its cuDNN forward). The MAML step goes
+through the spec's `meta_score`.
 """
 from __future__ import annotations
 
@@ -70,11 +78,11 @@ import torch
 
 from metaviterbinet_tpu_torch.config import Config
 from metaviterbinet_tpu_torch.ecc.rs import rs_decode_bits, rs_encode_bits
-from metaviterbinet_tpu_torch.kernels.online_sgd import online_adapt_viterbinet
-from metaviterbinet_tpu_torch.online.graphs import GraphedStep, device_rows
+from metaviterbinet_tpu_torch.kernels.online_sgd import online_adapt_viterbinet, power_table
+from metaviterbinet_tpu_torch.online.graphs import GraphedStep, chunk_steps, when
 from metaviterbinet_tpu_torch.ops.trellis import calculate_states
-from metaviterbinet_tpu_torch.train.loop import make_sgd_step
-from metaviterbinet_tpu_torch.train.losses import make_loss_fn, select_batch
+from metaviterbinet_tpu_torch.train.loop import sgd_step
+from metaviterbinet_tpu_torch.train.losses import make_loss_fn
 from metaviterbinet_tpu_torch.train.meta import make_maml_step, sorted_unique
 from metaviterbinet_tpu_torch.train.optim import ADAM_B1, ADAM_B2, ADAM_EPS, Optimizer
 
@@ -85,14 +93,17 @@ class OnlineResult(NamedTuple):
     n_buffer: int             # final buffer fill
     n_gated: int              # blocks that passed the gate
     steps: dict               # steps taken by graphed step: "self_supervised", "maml"
+    # the loop's reads of device state: one at the end of the run, and one
+    # at each candidate meta slot of a meta cell (on the card the warm-up
+    # calls of its graphs read their gate too, online/graphs.py::when)
+    host_reads: int
 
 
 class Draws:
     """The engine's random draws, each in stream order from the generators
     it is given: `host` (CPU) for the meta query draws, `device` for the
-    select_batch indices and fresh params. The block `count` and the step
-    within it are passed so that a test can replay another package's key
-    stream instead."""
+    select_batch indices and fresh params. The block `count` is passed so
+    that a test can replay another package's key stream instead."""
 
     def __init__(self, cfg: Config, spec, device: torch.device, generator: torch.Generator,
                  host_generator: torch.Generator):
@@ -103,27 +114,20 @@ class Draws:
         """meta_j_num query draws in [0, high), on the CPU."""
         return torch.randint(0, high, (self.cfg.meta_j_num,), generator=self.host_generator)
 
-    def select(self, count: int, step: int, n: int) -> torch.Tensor:
-        """select_batch indices over n labels for self-supervised step `step`."""
-        return select_batch(n, self.cfg.train_minibatch_size, self.generator, self.device)
-
-    def select_steps(self, count: int, n_steps: int, n: int) -> torch.Tensor:
-        """[n_steps, train_minibatch_size]: the `select` draws of a block's
-        steps, in step order, from the same generator."""
-        return torch.stack([self.select(count, step, n) for step in range(n_steps)])
+    def select_run(self, n_words: int, n_steps: int, n: int) -> torch.Tensor:
+        """[n_words, n_steps, train_minibatch_size]: the select_batch indices
+        over n labels of every self-supervised step of every block, as the
+        JAX engine draws a key for every block, gated or not; one batched
+        draw (train/losses.py::select_batch's law, row by row)."""
+        weights = torch.arange(n, dtype=torch.float32, device=self.device)
+        rows = torch.multinomial(weights.repeat(n_words * n_steps, 1),
+                                 self.cfg.train_minibatch_size, replacement=False,
+                                 generator=self.generator)
+        return rows.reshape(n_words, n_steps, -1)
 
     def init_params(self, count: int):
         """Fresh params for weights_init='random'."""
         return self.spec.init(self.cfg, self.generator, self.device)
-
-
-def make_self_supervised_step(loss_fn: Callable, optimizer: Optimizer) -> GraphedStep:
-    """The engine's self-supervised step, a CUDA graph on the card:
-    step(params, opt_state, rx [1, T], label [1, n], idx [B] or None, bc [2])
-    takes one optimizer step on loss_fn(params, rx, label, idx) with the
-    bias correction bc (Optimizer.advance), in place (train/loop.py::
-    make_sgd_step)."""
-    return make_sgd_step(loss_fn, optimizer, "self_supervised")
 
 
 @torch.no_grad()
@@ -152,23 +156,79 @@ def detect_decode_score(detect: Callable, rx: torch.Tensor, tx: torch.Tensor, h:
     return ser, label, detected
 
 
-def make_block_scorer(cfg: Config, spec, model) -> Callable:
-    """score(is_data, rx [1, T], tx [n], h [1, L]) -> detect_decode_score's
-    (ser, label, detected) with the spec's engine detect on `model` (None
-    for the VA), as two graphed calls, one per kind of block: the detect
-    reads the model's params in place, the graphs' state."""
-    p = spec.model.param_dict(model) if spec.trainable else {}
+@torch.no_grad()
+def append(buf_rx: torch.Tensor, buf_tx: torch.Tensor, start: torch.Tensor, n_valid: torch.Tensor,
+           rx: torch.Tensor, label: torch.Tensor, gate: torch.Tensor, ring: bool) -> None:
+    """The JAX engine's buffer append under `lax.cond(gate)`, in place and
+    on the device: rx [1, T] and label [1, T] into the slot (start +
+    n_valid) % capacity where the 0-d bool `gate` holds; a ring (a buffer
+    that started full) advances its start, an empty-start buffer grows its
+    fill `n_valid` up to the capacity and past it drops its oldest word.
+    start and n_valid are 0-d int32 tensors."""
+    cap = buf_rx.shape[0]
+    slot = ((start + n_valid) % cap).reshape(1).long()
+    buf_rx.index_copy_(0, slot, torch.where(gate, rx, buf_rx.index_select(0, slot)))
+    buf_tx.index_copy_(0, slot, torch.where(gate, label, buf_tx.index_select(0, slot)))
+    if ring:
+        start.copy_(torch.where(gate, (start + 1) % cap, start))
+    else:
+        start.copy_(torch.where(gate & (n_valid >= cap), (start + 1) % cap, start))
+        n_valid.copy_(torch.where(gate, torch.clamp(n_valid + 1, max=cap), n_valid))
 
+
+def make_block_step(cfg: Config, spec, model, ring: bool) -> Callable:
+    """block(is_data, p, st, rx [1, T], tx [n], h [1, L]): one block of the
+    JAX scan body up to the meta slot, on the run state `st` (run_online):
+    detect_decode_score with the spec's engine detect on `model` (None for
+    the VA) and its params `p`, the gate, the block's SER and the gate's
+    count, the block's word and label kept for its adaptation, and the
+    buffer append. Two graphed calls, one per kind of block."""
     detect = functools.partial(spec.engine_detect, model)
+    thresh = float(np.float32(cfg.ser_thresh))
 
     def block(is_data: bool) -> GraphedStep:
-        def fn(p, rx, tx, h):
-            return detect_decode_score(detect, rx, tx, h, cfg.n_symbols, cfg.use_ecc, is_data)
+        def fn(p, st, rx, tx, h):
+            ser, label, _ = detect_decode_score(detect, rx, tx, h, cfg.n_symbols, cfg.use_ecc,
+                                                is_data)
+            label = label[None].to(st["label"].dtype)
+            gate = ser <= thresh
+            st["gate"].copy_(gate)
+            st["sers"].index_copy_(0, st["block"].reshape(1), ser.reshape(1))
+            st["block"].add_(1)
+            st["n_gated"].add_(gate)
+            st["rx"].copy_(rx)
+            st["label"].copy_(label)
+            append(st["buf_rx"], st["buf_tx"], st["start"], st["n_valid"], rx, label, gate, ring)
 
-        return GraphedStep(fn, "detect", n_state=1)
+        return GraphedStep(fn, "detect", n_state=2)
 
     graphed = {is_data: block(is_data) for is_data in (False, True)}
-    return lambda is_data, rx, tx, h: graphed[is_data](p, rx, tx, h)
+    return lambda is_data, *args: graphed[is_data](*args)
+
+
+def make_adapt_step(cfg: Config, optimizer: Optimizer, loss_fn: Optional[Callable], fused: bool,
+                    chunk: int) -> GraphedStep:
+    """The self-supervised loop of a block under its gate, a graphed call
+    on (p, opt_state, st): with `fused`, adapt(p, opt_state, st) is one
+    launch of the fused kernel for all self_supervised_iterations steps;
+    else adapt(p, opt_state, st, idx [chunk, B] or None) takes `chunk`
+    autograd steps on the block's word and label, step i on idx[i]."""
+    L = cfg.memory_length
+
+    def adapt_fused(p, opt_state, st):
+        online_adapt_viterbinet(p, opt_state, st["rx"][0], calculate_states(L, st["label"]),
+                                cfg.self_supervised_iterations, cfg.lr, ADAM_B1, ADAM_B2, ADAM_EPS)
+
+    def steps(p, opt_state, st, idx):
+        for i in range(chunk):
+            sgd_step(loss_fn, optimizer, p, opt_state, st["rx"], st["label"],
+                     None if idx is None else idx[i])
+
+    if fused:
+        return GraphedStep(lambda p, o, st: when(st["gate"], adapt_fused, p, o, st),
+                           "self_supervised", n_state=3)
+    return GraphedStep(lambda p, o, st, idx: when(st["gate"], steps, p, o, st, idx),
+                       "self_supervised", n_state=3)
 
 
 def _snapshot(params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
@@ -203,28 +263,40 @@ def run_online(cfg: Config, spec, params, tx_words: torch.Tensor, rx_words: torc
     rx_words [n_words, T] received samples; h_words [n_words, L] decoder-side
     CSI (the VA's only). `params` (a model of the spec's family, None for
     the VA) is copied, not changed. `spans(name)` is entered around each
-    block's "detect" (detect, RS decode, SER, pseudo-label), "sync" (inside
-    "detect": the read of the SER), "adapt" (self-supervision) and "meta"
-    (meta adaptation), for timing."""
+    block's "detect" (detect, RS decode, SER, pseudo-label, gate, append),
+    "adapt" (self-supervision, under the gate) and "meta" (a meta slot's
+    adaptation), and around each host read, "sync" (at a candidate meta
+    slot and at the end of the run), for timing. On the card a span's host
+    clock measures the enqueue: the device runs behind the host until a
+    read."""
     n_words, T = rx_words.shape
     cap, L, w = cfg.buffer_capacity, cfg.memory_length, cfg.window_size
     subframes = cfg.subframes_in_frame
-    thresh = np.float32(cfg.ser_thresh)
     trainable = spec.trainable
     meta = trainable and cfg.online_meta
     self_sup = trainable and cfg.self_supervised
+    device = rx_words.device
 
     model = copy.deepcopy(params) if trainable else None
-    p = spec.model.param_dict(model) if trainable else None
-    score_block = make_block_scorer(cfg, spec, model)
-    optimizer = opt_state = None
+    p = spec.model.param_dict(model) if trainable else {}
+    ring = init_buffer_rx is not None
+    block_step = make_block_step(cfg, spec, model, ring)
+    graphed = []
+    optimizer = opt_state = select = None
     if meta or self_sup:
         optimizer = Optimizer(cfg.optimizer_type, cfg.lr, cfg.clip_grad_norm)
         opt_state = optimizer.init(p)
         loss_fn = make_loss_fn(spec.score, spec.label_kind, L, spec.subsample_loss, cfg.loss_type)
     fused = self_sup and uses_fused_adaptation(cfg, spec)
-    if self_sup and not fused:
-        ss_step = make_self_supervised_step(loss_fn, optimizer)
+    if self_sup:
+        n_steps = cfg.self_supervised_iterations
+        chunk = n_steps if fused else chunk_steps(n_steps, spec.model.STEP_NODES)
+        adapt = make_adapt_step(cfg, optimizer, loss_fn, fused, chunk)
+        graphed.append(adapt)
+        if fused and device.type == "cuda":
+            power_table(ADAM_B1, ADAM_B2, device)  # uploaded before a capture
+        if spec.subsample_loss and not fused:
+            select = draws.select_run(n_words, n_steps, T)
     if meta:
         maml_loss_fn = make_loss_fn(spec.meta_score, spec.label_kind, L, spec.subsample_loss,
                                     cfg.loss_type)
@@ -234,86 +306,84 @@ def run_online(cfg: Config, spec, params, tx_words: torch.Tensor, rx_words: torc
             else _snapshot(spec.model.param_dict(meta_init_params))
         if cfg.weights_init not in ("last_frame", "random", "meta_training"):
             raise ValueError(f"No such weights init: {cfg.weights_init}")
+        restore = GraphedStep(lambda p, saved, st: when(st["gate"], _restore, p, saved),
+                              "restore", n_state=3)
 
-    buf_rx = rx_words.new_zeros((cap, T))
-    buf_tx = rx_words.new_zeros((cap, T))
-    ring = init_buffer_rx is not None
-    n_valid = 0
+    # the run state: what the JAX scan carries besides params and optimizer
+    # state, and the per-block results, on the device
+    int0 = lambda: torch.zeros((), dtype=torch.int32, device=device)
+    st = {"buf_rx": rx_words.new_zeros((cap, T)), "buf_tx": rx_words.new_zeros((cap, T)),
+          "start": int0(), "n_valid": int0(), "n_gated": int0(),
+          "gate": torch.zeros((), dtype=torch.bool, device=device),
+          "block": torch.zeros((), dtype=torch.int64, device=device),
+          "sers": torch.zeros(n_words, dtype=torch.float32, device=device),
+          "rx": rx_words.new_zeros((1, T)), "label": rx_words.new_zeros((1, T))}
     if ring:
-        n_valid = init_buffer_rx.shape[0]
-        if n_valid > cap:
-            raise ValueError(f"init buffer ({n_valid} words) exceeds buffer_capacity ({cap}); "
+        n0 = init_buffer_rx.shape[0]
+        if n0 > cap:
+            raise ValueError(f"init buffer ({n0} words) exceeds buffer_capacity ({cap}); "
                              "raise Config.buffer_capacity")
-        buf_rx[:n_valid] = init_buffer_rx
-        buf_tx[:n_valid] = init_buffer_tx
-    start = 0
+        st["buf_rx"][:n0] = init_buffer_rx
+        st["buf_tx"][:n0] = init_buffer_tx
+        st["n_valid"].fill_(n0)
 
-    def meta_adapt() -> None:
+    def meta_adapt(start: int, n_valid: int) -> None:
         for iteration in range(cfg.meta_train_iterations):
             j_hats = sorted_unique(draws.j_hats(count, iteration, max(n_valid - 2, 1)))
             for j in j_hats.tolist():
                 # rows by slicing, so that no index tensor is copied to the card
                 phys_s = [(start + (j + d) % max(n_valid, 1)) % cap for d in range(-w, 0)]
                 q = (start + j) % cap
+                buf_rx, buf_tx = st["buf_rx"], st["buf_tx"]
                 maml_step(p, opt_state, torch.cat([buf_rx[i:i + 1] for i in phys_s]),
                           torch.cat([buf_tx[i:i + 1] for i in phys_s]),
                           buf_rx[q:q + 1], buf_tx[q:q + 1])
                 steps["maml"] += 1
 
-    sers = np.zeros(n_words, dtype=np.float32)
-    n_gated = 0
     steps = {"self_supervised": 0, "maml": 0}
+    host_reads = 0
     for count in range(n_words):
-        rx, tx = rx_words[count:count + 1], tx_words[count]
-        is_data = count % subframes != 0
         with spans("detect"):
-            ser_t, label, _ = score_block(is_data, rx, tx, h_words[count:count + 1])
-            if is_data:
-                with spans("sync"):  # the block's one host sync
-                    sers[count] = ser_t.item()
-        ser = sers[count]
-        gate = ser <= thresh
-        if gate:
-            n_gated += 1
-            slot = (start + n_valid) % cap
-            buf_rx[slot] = rx[0]
-            buf_tx[slot] = label
-            if ring:
-                start = (start + 1) % cap
-            else:
-                if n_valid >= cap:
-                    start = (start + 1) % cap
-                n_valid = min(n_valid + 1, cap)
+            block_step(count % subframes != 0, p, st, rx_words[count:count + 1], tx_words[count],
+                       h_words[count:count + 1])
 
-        if meta and count % cfg.meta_subframes == 0 and count >= cfg.meta_subframes \
-                and n_valid > 2:
-            with spans("meta"):
-                if cfg.weights_init == "last_frame":
-                    _restore(p, saved)
-                elif cfg.weights_init == "random":
-                    _restore(p, spec.model.param_dict(draws.init_params(count)))
-                    opt_state = optimizer.init(p)
-                else:
-                    _restore(p, meta_init)
-                meta_adapt()
-                saved = _snapshot(p)
+        if meta and count % cfg.meta_subframes == 0 and count >= cfg.meta_subframes:
+            with spans("sync"):  # the buffer's fill bounds the query draws
+                start, n_valid = torch.stack([st["start"], st["n_valid"]]).tolist()
+                host_reads += 1
+            if n_valid > 2:
+                with spans("meta"):
+                    if cfg.weights_init == "last_frame":
+                        _restore(p, saved)
+                    elif cfg.weights_init == "random":
+                        _restore(p, spec.model.param_dict(draws.init_params(count)))
+                        optimizer.init(p, out=opt_state)
+                    else:
+                        _restore(p, meta_init)
+                    meta_adapt(start, n_valid)
+                    _restore(saved, p)
 
-        if self_sup and gate:
+        if self_sup:
             with spans("adapt"):
                 if meta:
-                    _restore(p, saved)
+                    restore(p, saved, st)
                 if fused:
-                    online_adapt_viterbinet(p, opt_state, rx[0], calculate_states(L, label[None]),
-                                            cfg.self_supervised_iterations, cfg.lr,
-                                            ADAM_B1, ADAM_B2, ADAM_EPS)
+                    adapt(p, opt_state, st)
                 else:
-                    n_steps = cfg.self_supervised_iterations
-                    idx = draws.select_steps(count, n_steps, T) if spec.subsample_loss \
-                        else [None] * n_steps
-                    bc = device_rows(optimizer.advance(opt_state, n_steps), rx.device)
-                    for step in range(n_steps):
-                        ss_step(p, opt_state, rx, label[None], idx[step], bc[step])
-                    steps["self_supervised"] += n_steps
+                    for first in range(0, n_steps, chunk):
+                        adapt(p, opt_state, st, None if select is None
+                              else select[count, first:first + chunk])
 
+    with spans("sync"):  # the run's one read: SERs, counts and conditional launches
+        hits = [h for g in graphed for h, _ in g.conditional]
+        ints = torch.stack([st["n_gated"], st["n_valid"], *hits]).to(torch.float32)
+        read = torch.cat([st["sers"], ints]).cpu().numpy()
+        host_reads += 1
+    sers = read[:n_words]
+    n_gated, n_valid, *hits = (int(v) for v in read[n_words:])
+    for g in graphed:
+        g.settle([hits.pop(0) for _ in g.conditional])
+    if self_sup and not fused:
+        steps["self_supervised"] = n_gated * n_steps
     return OnlineResult(ser_by_word=sers, params=model, n_buffer=n_valid, n_gated=n_gated,
-                        steps=steps)
+                        steps=steps, host_reads=host_reads)

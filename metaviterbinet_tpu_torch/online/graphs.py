@@ -1,15 +1,15 @@
 """Calls replayed as CUDA graphs: the card's counterpart of the JAX
 package's compiled loops, which run a loop of steps as one program with no
-host work between them: the engine scan's `sgd_steps`, `meta_adapt` and
-per-block `detect_decode_score` (its online/engine.py) and the offline word
-sweep (its train/loop.py).
+host work between them: the engine scan's body (`detect_decode_score`, the
+gate, the buffer append, `sgd_steps` and `meta_adapt`, its
+online/engine.py) and the offline word sweep (its train/loop.py).
 
 A call is `fn(*state, *inputs)`. `state` is what it reads or writes in
-place: parameter dicts, an optimizer state (train/optim.py::OptState), or
+place: parameter dicts (the engine's run state is one too), an optimizer
+state (train/optim.py::OptState, whose step count is a device tensor), or
 none. It updates them in place (`p.add_`, `mu.copy_`), never rebinding
-them, and it changes no host state: a training step's caller advances the
-optimizer's count and passes the bias correction as an input
-(train/optim.py::Optimizer.advance and `apply`).
+them, and it changes no host state and reads nothing back to the host, so
+that a replay computes what the call computes.
 
 `GraphedStep(fn, name, n_state)(*state, *inputs)`, the first `n_state`
 arguments the state:
@@ -24,6 +24,20 @@ arguments the state:
     it; every later call replays it. A capture that fails raises with
     CUDA's error.
 
+`when(pred, fn, *args)` is `lax.cond` without an else: fn(*args) runs where
+the 0-d bool tensor `pred` holds. In a GraphedStep's capture it records fn
+into a CUDA graph IF node (kernels/csrc/if_node.cu), whose body the device
+runs or skips at each replay by the value `pred` then has, with no host
+read: fn is captured on a second stream into the node's body, its
+allocations in a memory pool of their own that lives as long as the graph;
+everywhere else (the CPU, a warm-up, `chip_smoke.no_capture()`) it is
+`if bool(pred)`.
+
+A loop of steps is captured as one graph of `chunk_steps(n, nodes)` steps
+back to back, replayed n / chunk times: a graph of the whole loop would
+hold n times a step's nodes (an LSTM step is about 1,305, PERF.md), and
+MAX_GRAPH_NODES bounds what one graph holds.
+
 What fn returns (tensors or None) is, on a replay, the graph's static
 output, which the next call overwrites: a caller reads it in stream order
 (an eager op on it) before the next call. `GraphedStep.counts[name]` counts
@@ -33,13 +47,17 @@ kernel wrappers count their launches.
 The kernel wrappers (LAUNCH_COUNTED) count a launch in Python when they
 are called. A capture calls them and executes nothing, and a replay calls
 none, so the capture takes back what the wrappers counted during it and
-each replay adds it again: the counts stay kernel executions.
+each replay adds it again: the counts stay kernel executions. A launch
+inside a `when` body runs only where its predicate holds, which the host
+does not know: the capture records it against a device count of the
+replays whose predicate held (`GraphedStep.conditional`), and the caller
+adds it once, from that count read with its results (`settle`).
 """
 from __future__ import annotations
 
+import weakref
 from typing import Any, Callable, Optional
 
-import numpy as np
 import torch
 
 from metaviterbinet_tpu_torch.kernels import acs, online_sgd
@@ -47,6 +65,14 @@ from metaviterbinet_tpu_torch.train.optim import OptState
 
 WARMUP_STEPS = 2
 KINDS = ("direct", "warmup", "capture", "replay")
+# the most nodes one captured loop of steps may hold: a vnet self-supervised
+# step is about 119 device activities and an LSTM one about 1,305 (one step
+# under torch.profiler, chip_smoke.py phase 7c, NVIDIA H100 80GB HBM3). A
+# chunk replays at about the single-step replay's time a step (0.249 against
+# 0.260 ms for vnet), while its two warm-ups and its capture run its steps
+# at eager speed (~10x); at 30,000 nodes (200 vnet steps) those took ~2.6 s
+# of a 12 s vnet online run (PERF.md section 6), so the ceiling is small
+MAX_GRAPH_NODES = 3_000
 
 
 def replays_on(device: torch.device) -> bool:
@@ -55,14 +81,12 @@ def replays_on(device: torch.device) -> bool:
     return device.type == "cuda"
 
 
-def device_rows(rows: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host rows (the bias corrections of train/optim.py::Optimizer.advance)
-    as a tensor on `device`, copied from pinned memory without a sync on
-    the card."""
-    t = torch.from_numpy(rows)
-    if device.type != "cuda":
-        return t.to(device)
-    return t.pin_memory().to(device, non_blocking=True)
+def chunk_steps(n: int, step_nodes: int) -> int:
+    """The steps of a loop of n captured as one graph: the largest divisor
+    of n whose steps of `step_nodes` nodes each stay within
+    MAX_GRAPH_NODES (1 at least)."""
+    return max(d for d in range(1, n + 1) if n % d == 0 and (d == 1 or d * step_nodes
+                                                            <= MAX_GRAPH_NODES))
 
 
 # the kernel wrappers that count their launches (kernels/acs.py,
@@ -71,16 +95,51 @@ LAUNCH_COUNTED = (acs.fused_va_detect, acs.fused_viterbinet_detect,
                   acs.fused_viterbinet_detect_chunked, acs.viterbi_decode_kernel,
                   online_sgd.online_adapt_viterbinet)
 
+# the GraphedStep whose capture is running
+_capturing: Optional["GraphedStep"] = None
+
+
+def when(pred: torch.Tensor, fn: Callable, *args) -> None:
+    """fn(*args) where the 0-d bool tensor `pred` holds: an IF node of the
+    graph a GraphedStep is capturing, else a host branch."""
+    if not (pred.is_cuda and torch.cuda.is_current_stream_capturing()):
+        if bool(pred):
+            fn(*args)
+        return
+    if _capturing is None:
+        raise RuntimeError("when: a conditional node is captured inside a GraphedStep only")
+    body, pool = _capturing._body(pred.device)
+    lib = acs._library("if_node")
+    acs._check_launch("if_node", lib.if_node(1, pred.data_ptr(),
+                                             torch.cuda.current_stream().cuda_stream,
+                                             body.cuda_stream))
+    before = [w.launches for w in LAUNCH_COUNTED]
+    with torch.cuda.stream(body):
+        torch._C._cuda_beginAllocateCurrentStreamToPool(pred.device.index, pool)
+        fn(*args)
+        torch._C._cuda_endAllocateToPool(pred.device.index, pool)
+    acs._check_launch("if_node", lib.if_node(0, None, None, body.cuda_stream))
+    launches = {}
+    for w, n in zip(LAUNCH_COUNTED, before):
+        if w.launches != n:
+            launches[w] = w.launches - n
+            w.launches = n
+    if launches:
+        # no kernel fills it: the capture would replay the fill
+        hits = torch.empty((), dtype=torch.int32, device=pred.device)
+        hits.add_(pred)
+        _capturing.conditional.append((hits, launches))
+
 
 def state_tensors(state: tuple) -> list[torch.Tensor]:
     """The tensors of a call's state, in order: the values of parameter
-    dicts, an OptState's moments."""
+    dicts, an OptState's count and moments."""
     out = []
     for s in state:
         if isinstance(s, dict):
             out.extend(s.values())
         elif isinstance(s, OptState):
-            out.extend(list(s.mu.values()) + list(s.nu.values()))
+            out.extend([s.count, *s.mu.values(), *s.nu.values()])
         else:
             raise TypeError(f"a graphed call's state holds a {type(s).__name__}")
     return out
@@ -106,11 +165,34 @@ class GraphedStep:
         self.fn, self.name, self.n_state = fn, name, n_state
         self._entries: dict[tuple, _Entry] = {}
         self._stream: Optional[torch.cuda.Stream] = None
+        self._body_stream: Optional[torch.cuda.Stream] = None
+        # per `when` body of a capture: a device count of the replays whose
+        # predicate held, and the launches the body makes in one of them
+        self.conditional: list[tuple[torch.Tensor, dict[Callable, int]]] = []
+
+    def _body(self, device: torch.device) -> tuple[torch.cuda.Stream, tuple]:
+        """The stream that captures `when` bodies, and a new memory pool for
+        the allocations of the body being captured, released when the graph
+        being captured is."""
+        if self._body_stream is None:
+            self._body_stream = torch.cuda.Stream(device)
+        pool = torch.cuda.graph_pool_handle()
+        weakref.finalize(self._graph, torch._C._cuda_releasePool, device.index, pool)
+        return self._body_stream, pool
 
     def _count(self, kind: str) -> None:
         GraphedStep.counts.setdefault(self.name, dict.fromkeys(KINDS, 0))[kind] += 1
 
+    def settle(self, hits: list[int]) -> None:
+        """Add the launches of the `when` bodies, given `hits`, the values
+        of the `conditional` counts read by the caller; and zero them."""
+        for (count, launches), n in zip(self.conditional, hits):
+            for w, k in launches.items():
+                w.launches += k * n
+            count.zero_()
+
     def __call__(self, *args):
+        global _capturing
         state, inputs = args[:self.n_state], args[self.n_state:]
         tensors = state_tensors(state)
         device = (tensors or [t for t in inputs if t is not None])[0].device
@@ -139,14 +221,19 @@ class GraphedStep:
             self._count("warmup")
             return out
         if entry.graph is None:
-            graph = torch.cuda.CUDAGraph()
+            graph = self._graph = torch.cuda.CUDAGraph()
             before = [w.launches for w in LAUNCH_COUNTED]
+            n_conditional = len(self.conditional)
+            _capturing = self
             with torch.cuda.graph(graph, stream=self._stream):
                 entry.out = self.fn(*state, *entry.static)
+            _capturing = None
             for w, n in zip(LAUNCH_COUNTED, before):
                 if w.launches != n:  # counted at the capture, which ran nothing
                     entry.launches[w] = w.launches - n
                     w.launches = n
+            for count, _ in self.conditional[n_conditional:]:
+                count.zero_()
             entry.graph = graph
             self._count("capture")
         entry.graph.replay()

@@ -73,6 +73,7 @@ def save_params(weights_dir: str, snr: float, gamma: float, params: dict[str, to
     path = ckpt_path(weights_dir, snr, gamma)
     payload = {"params": _cpu(params), "loss": float(loss)}
     if opt_state is not None:
+        # the count as a host int: one read, when the checkpoint is written
         payload["opt_state"] = {"count": int(opt_state.count), "mu": _cpu(opt_state.mu),
                                 "nu": _cpu(opt_state.nu)}
     torch.save(payload, path)
@@ -88,7 +89,7 @@ def _jax_opt_state(tree: dict, device: torch.device) -> OptState:
     for sub in tree.values():
         if isinstance(sub, dict) and sub:
             return _jax_opt_state(sub, device)
-    return OptState()
+    return OptState(count=torch.zeros((), dtype=torch.int32, device=device))
 
 
 def _load_jax(path: str, device: torch.device) -> dict:
@@ -114,5 +115,8 @@ def load_checkpoint(weights_dir: str, snr: float, gamma: float,
         return _load_jax(jax_path, torch.device(device)) if os.path.isfile(jax_path) else None
     raw = torch.load(path, map_location=device, weights_only=True)
     if "opt_state" in raw:
-        raw["opt_state"] = OptState(**raw["opt_state"])
+        state = raw["opt_state"]
+        raw["opt_state"] = OptState(
+            count=torch.tensor(state["count"], dtype=torch.int32, device=device),
+            mu=state["mu"], nu=state["nu"])
     return raw

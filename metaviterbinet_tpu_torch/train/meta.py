@@ -17,7 +17,7 @@ from typing import Callable
 
 import torch
 
-from metaviterbinet_tpu_torch.online.graphs import GraphedStep, device_rows
+from metaviterbinet_tpu_torch.online.graphs import GraphedStep
 from metaviterbinet_tpu_torch.train.optim import Optimizer, OptState
 
 
@@ -29,15 +29,15 @@ def sorted_unique(j_hats: torch.Tensor) -> torch.Tensor:
 
 
 def make_maml_step(loss_fn: Callable, optimizer: Optimizer, meta_lr: float,
-                   second_order: bool) -> Callable:
+                   second_order: bool) -> GraphedStep:
     """Returns step(params, opt_state, s_rx, s_tx, q_rx, q_tx) -> query loss,
-    which updates params and opt_state in place. On the card the loss is
-    the graph's static output, which the next step overwrites: an eager op
-    on it before the next step reads this step's loss, in stream order; a
-    host read after the next step would read that step's."""
+    which updates params and opt_state in place at the optimizer state's
+    count. On the card the loss is the graph's static output, which the
+    next step overwrites: an eager op on it before the next step reads this
+    step's loss, in stream order; a host read after the next step would
+    read that step's."""
 
-    def pair_step(params: dict[str, torch.Tensor], opt_state: OptState, s_rx, s_tx, q_rx, q_tx,
-                  bc):
+    def pair_step(params: dict[str, torch.Tensor], opt_state: OptState, s_rx, s_tx, q_rx, q_tx):
         names = list(params)
         leaves = [params[k] for k in names]
         inner = torch.autograd.grad(loss_fn(params, s_rx, s_tx), leaves,
@@ -45,13 +45,7 @@ def make_maml_step(loss_fn: Callable, optimizer: Optimizer, meta_lr: float,
         updated = {k: p - meta_lr * g for k, p, g in zip(names, leaves, inner)}
         loss_q = loss_fn(updated, q_rx, q_tx)
         meta_grads = torch.autograd.grad(loss_q, leaves)
-        optimizer.apply(params, dict(zip(names, meta_grads)), opt_state, bc)
+        optimizer.apply(params, dict(zip(names, meta_grads)), opt_state)
         return loss_q.detach()
 
-    graphed = GraphedStep(pair_step, "maml")
-
-    def step(params: dict[str, torch.Tensor], opt_state: OptState, s_rx, s_tx, q_rx, q_tx):
-        bc = device_rows(optimizer.advance(opt_state, 1), s_rx.device)[0]
-        return graphed(params, opt_state, s_rx, s_tx, q_rx, q_tx, bc)
-
-    return step
+    return GraphedStep(pair_step, "maml")

@@ -35,8 +35,10 @@ def params_to_numpy(model) -> dict[str, np.ndarray]:
 
 def adam_state_from_jax(mu: dict[str, np.ndarray], nu: dict[str, np.ndarray], count,
                         device: str | torch.device = "cuda") -> OptState:
-    """An optax ScaleByAdamState's moments and count as the port's OptState."""
+    """An optax ScaleByAdamState's moments and count as the port's OptState
+    (its count a 0-d int32 tensor on `device`)."""
     device = resolve_device(device)
     to = lambda d: {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
                     for k, v in d.items()}
-    return OptState(count=int(count), mu=to(mu), nu=to(nu))
+    return OptState(count=torch.tensor(int(count), dtype=torch.int32, device=device),
+                    mu=to(mu), nu=to(nu))

@@ -7,7 +7,10 @@ steps against its plain version and, after 40 + 40, against a float64 run
 of the plain version's arithmetic (its distance within a multiple of the f32
 plain version's, chip_smoke.py's K6_WITNESS_*), on a few (T, S) words and
 the witness words, where runs with one Adam constant off (K6_FAULTS) must
-fail it; two K6 launches with each other; then count the SASS
+fail it; two K6 launches with each other (K6 reads its start powers from
+device memory at the optimizer's device count, which its wrapper gathers
+and advances, so every K6 check here starts from a device count, 0 or
+the 40 of a resumed call); then count the SASS
 instructions of the S = 16 detect kernels (K1, K2, K4), and time one
 tensor-core tile of K1 (a block's fixed cost: its weights into shared
 memory and one tile), K1, K2 and K4 at the protocol's 300 x 136, K1, K2

@@ -459,29 +459,152 @@ GRAPH_CASES = [("vnet self-supervised", True), ("lstm self-supervised", True),
 
 
 def test_bias_correction_factors_equal_the_eager_division_on_the_card(gen):
-    """On the card an Adam update that multiplies by the host's float32
-    reciprocal of the bias correction, read from a device tensor as a
-    replayed step reads it, equals Optimizer.step's and the division by the
-    host float that PyTorch computes eagerly (its CUDA kernel multiplies by
-    the reciprocal), bit for bit, over 300 steps."""
-    from metaviterbinet_tpu_torch.online.graphs import device_rows
+    """On the card Optimizer.step, which gathers its bias correction from
+    the float32 table at the device count (train/optim.py), equals the
+    update with the host's float32 reciprocals (apply with a host row, the
+    step of a count kept on the host) and the division by the host float
+    that PyTorch computes eagerly (its CUDA kernel multiplies by the
+    reciprocal), bit for bit, over 300 steps."""
     from metaviterbinet_tpu_torch.train.optim import (
         ADAM_B1, ADAM_B2, ADAM_EPS, _bias_correction)
     params = {"w": torch.randn((50, 100), generator=gen, device="cuda")}
     twin, divided = ({"w": params["w"].clone()} for _ in range(2))
     opt = Optimizer("Adam", 1e-3)
-    host, dev = opt.init(params), opt.init(twin)
+    dev, host = opt.init(params), opt.init(twin)
     mu, nu = torch.zeros_like(params["w"]), torch.zeros_like(params["w"])
+    one = np.float32(1.0)
     for count in range(1, 301):
         g = 0.1 * torch.randn((50, 100), generator=gen, device="cuda")
-        opt.step(params, {"w": g}, host)
-        opt.apply(twin, {"w": g}, dev, device_rows(opt.advance(dev, 1), g.device)[0])
+        opt.step(params, {"w": g}, dev)
+        bc1, bc2 = _bias_correction(ADAM_B1, count), _bias_correction(ADAM_B2, count)
+        opt.apply(twin, {"w": g}, host, (float(one / np.float32(bc1)),
+                                         float(one / np.float32(bc2))))
         mu = (1 - ADAM_B1) * g + ADAM_B1 * mu
         nu = (1 - ADAM_B2) * (g * g) + ADAM_B2 * nu
-        bc1, bc2 = _bias_correction(ADAM_B1, count), _bias_correction(ADAM_B2, count)
         divided["w"].add_((mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS) * -1e-3)
-    assert host.count == dev.count == 300
+    assert dev.count.device.type == "cuda" and int(dev.count) == 300
     assert torch.equal(params["w"], twin["w"]) and torch.equal(params["w"], divided["w"])
+
+
+# ------------------------------------------- conditional nodes (lax.cond)
+
+def test_an_if_node_captures_and_replays(gen):
+    """online/graphs.py::when in a GraphedStep's capture records a CUDA
+    graph IF node (kernels/csrc/if_node.cu): a body that adds 1 and copies
+    a row runs at a replay where the predicate holds and is skipped where it
+    does not, the predicate read by the device at each replay; in the
+    warm-ups it is a host branch."""
+    from metaviterbinet_tpu_torch.online.graphs import GraphedStep, when
+
+    def body(st):
+        st["x"].add_(1.0)
+        st["row"].copy_(st["src"])
+
+    def fn(st, pred, src):
+        st["src"].copy_(src)
+        when(pred, body, st)
+
+    st = {"x": torch.zeros((), device="cuda"), "row": torch.zeros(136, device="cuda"),
+          "src": torch.zeros(136, device="cuda")}
+    call = GraphedStep(fn, "if node", n_state=1)
+    want_x, want_row = 0.0, torch.zeros(136, device="cuda")
+    for i, value in enumerate((True, False, True, False, True, True, False)):
+        src = torch.full((136,), float(i), device="cuda")
+        call(st, torch.tensor(value, device="cuda"), src)
+        if value:
+            want_x, want_row = want_x + 1.0, src
+        assert float(st["x"]) == want_x, i
+        assert torch.equal(st["row"], want_row), i
+    assert GraphedStep.counts["if node"]["capture"] == 1
+    assert GraphedStep.counts["if node"]["replay"] == 5
+
+
+@pytest.mark.parametrize("name", ["vnet", "lstm"])
+def test_an_if_node_step_runs_where_its_gate_holds(gen, name):
+    """The engine's self-supervised chunk (make_adapt_step, 2 steps) under
+    gates False, True, then (the capture) True and replays False, True,
+    False, True: at a replay with the gate closed the params, moments and
+    count are bit-equal to before it; every call equals the same call made
+    directly (chip_smoke.no_capture, a host branch)."""
+    from metaviterbinet_tpu_torch import Config
+    from metaviterbinet_tpu_torch.detectors import DETECTORS
+    from metaviterbinet_tpu_torch.online.engine import make_adapt_step
+    from metaviterbinet_tpu_torch.online.graphs import GraphedStep
+    from metaviterbinet_tpu_torch.train.losses import make_loss_fn, select_batch
+    cfg, spec = Config(), DETECTORS[name]
+    loss_fn = make_loss_fn(spec.score, spec.label_kind, cfg.memory_length, True)
+    gates = (False, True, True, False, True, False, True)
+    rx = torch.randn((len(gates), 136), generator=gen, device="cuda")
+    tx = torch.randint(0, 2, (len(gates), 136), generator=gen, device="cuda").float()
+    idx = torch.stack([select_batch(136, cfg.train_minibatch_size, gen, "cuda")
+                       for _ in range(2 * len(gates))])
+    after = {}
+    for captured in (True, False):
+        opt = Optimizer("Adam", cfg.lr)
+        p = spec.model.param_dict(spec.init(cfg, torch.Generator(device="cuda").manual_seed(1),
+                                            "cuda"))
+        state = opt.init(p)
+        st = {"gate": torch.zeros((), dtype=torch.bool, device="cuda"),
+              "rx": rx.new_zeros((1, 136)), "label": rx.new_zeros((1, 136))}
+        adapt = make_adapt_step(cfg, opt, loss_fn, False, 2)
+        GraphedStep.counts.pop("self_supervised", None)
+        # detached: a clone that autograd records would keep the params'
+        # gradient accumulators alive on this stream, which the captured
+        # backward on the IF node's stream would then wait for
+        tensors = lambda: [t.detach().clone() for t in (*p.values(), *state.mu.values(),
+                                                        *state.nu.values(), state.count)]
+        runs = []
+        with contextlib.nullcontext() if captured else chip_smoke.no_capture():
+            for i, gate in enumerate(gates):
+                st["gate"].fill_(gate)
+                st["rx"].copy_(rx[i:i + 1])
+                st["label"].copy_(tx[i:i + 1])
+                before = tensors()
+                adapt(p, state, st, idx[2 * i:2 * i + 2])
+                now = tensors()
+                runs.append(now)
+                if not gate:
+                    assert all(torch.equal(a, b) for a, b in zip(before, now)), i
+        after[captured] = runs
+        if captured:
+            assert GraphedStep.counts["self_supervised"]["replay"] == len(gates) - 2
+        assert int(state.count) == 2 * sum(gates)
+    for graphed, direct in zip(after[True], after[False]):
+        assert all(torch.equal(a, b) for a, b in zip(graphed, direct))
+
+
+def test_k6_under_an_if_node_equals_an_eager_k6(gen):
+    """K6 (a 16-CTA cluster launch through ctypes) captured in the engine's
+    fused adapt step under the gate's IF node: replays with the gate open
+    equal eager K6 launches on the same words bit for bit, a replay with it
+    closed changes nothing, and the launch counter reads the launches that
+    ran once the step settles its conditional count."""
+    from metaviterbinet_tpu_torch import Config
+    from metaviterbinet_tpu_torch.ecc.rs import rs_encode_bits
+    from metaviterbinet_tpu_torch.online.engine import make_adapt_step
+    cfg = Config()
+    gates = (True, False, True, True, False, True)
+    params, y, _ = chip_smoke.adapt_inputs(1)
+    rs_label = rs_encode_bits(torch.randint(0, 2, (1, 120), generator=gen, device="cuda").float(),
+                              2)
+    opt = Optimizer("Adam", cfg.lr)
+    (pg, sg), (pe, se) = (chip_smoke._copy_state(params, opt.init(params)) for _ in range(2))
+    st = {"gate": torch.zeros((), dtype=torch.bool, device="cuda"), "rx": y[None].clone(),
+          "label": rs_label.clone()}
+    adapt = make_adapt_step(cfg, opt, None, True, 200)
+    before = online_sgd.online_adapt_viterbinet.launches
+    for gate in gates:
+        st["gate"].fill_(gate)
+        adapt(pg, sg, st)
+        if gate:
+            online_sgd.online_adapt_viterbinet(pe, se, y, calculate_states(4, rs_label), 200,
+                                               cfg.lr)
+    hits = [int(h) for h, _ in adapt.conditional]
+    adapt.settle(hits)
+    assert online_sgd.online_adapt_viterbinet.launches - before == 2 * sum(gates)
+    assert int(sg.count) == int(se.count) == 200 * sum(gates)
+    for a, b in ((pg, pe), (sg.mu, se.mu), (sg.nu, se.nu)):
+        assert all(torch.equal(a[k], b[k]) for k in a)
 
 
 @pytest.mark.parametrize("kind,second_order", GRAPH_CASES)
@@ -643,3 +766,69 @@ def test_engine_blocks_graphed_equal_the_blocks_uncaptured(gen, name):
     assert sum(runs[True][1].values()) == (15 if want else 0)
     if want:
         assert runs[True][1][want] == 15
+
+
+@pytest.mark.parametrize("name,mode", [("vnet", "online"), ("lstm", "online"),
+                                       ("meta_vnet", "meta")])
+def test_engine_online_blocks_graphed_equal_the_blocks_uncaptured(gen, name, mode):
+    """run_online with adaptation on the card, 15 blocks at the protocol's
+    width, ser_thresh 1 (every block gated) and 20 self-supervised steps a
+    block: the block, restore and adapt graphs (the steps under the gate's
+    IF node, K6 for meta_vnet) against the same calls with capture patched
+    out, from the same draws: SERs per block and final params equal, the
+    same launches (K6 one per gated block), one host read (plus one at each
+    candidate meta slot)."""
+    from metaviterbinet_tpu_torch import Config
+    from metaviterbinet_tpu_torch.evaluation.trainer import Trainer
+    from metaviterbinet_tpu_torch.online.engine import Draws, run_online
+    cfg = Config(val_frames=3, subframes_in_frame=5, use_ecc=True, n_symbols=2, ser_thresh=1.0,
+                 self_supervised=True, online_meta=mode == "meta", meta_subframes=3,
+                 self_supervised_iterations=20)
+    trainer = Trainer(cfg, name, verbose=False)
+    params = trainer.spec.init(cfg, gen, "cuda")
+    tx, rx = trainer.val_dataset.get(10.0, cfg.gamma)
+    h = trainer.decoder_csi(tx.shape[0])
+    runs = {}
+    for captured in (True, False):
+        draws = Draws(cfg, trainer.spec, torch.device("cuda"),
+                      torch.Generator(device="cuda").manual_seed(5),
+                      torch.Generator().manual_seed(5))
+        chip_smoke.zero_launches()
+        with contextlib.nullcontext() if captured else chip_smoke.no_capture():
+            result = run_online(cfg, trainer.spec, params, tx, rx, h, draws)
+        runs[captured] = (result, chip_smoke.read_launches())
+    (g, g_launches), (u, u_launches) = runs[True], runs[False]
+    assert np.array_equal(g.ser_by_word, u.ser_by_word)
+    assert g_launches == u_launches
+    assert g.n_gated == u.n_gated == 15
+    want_reads = 1 + (4 if mode == "meta" else 0)  # blocks 3, 6, 9, 12
+    assert g.host_reads == u.host_reads == want_reads
+    if mode == "meta":
+        assert g_launches["online_adapt_viterbinet"] == 15
+    model = trainer.spec.model
+    assert chip_smoke.tensors_apart(list(model.param_dict(g.params).values()),
+                                    list(model.param_dict(u.params).values())) == 0.0
+
+
+@pytest.mark.parametrize("name,mode", [("va", "joint"), ("vnet", "joint"), ("vnet", "online")])
+def test_blocks_after_the_captures_make_no_host_sync(gen, name, mode):
+    """run_online's block loop on the card under
+    torch.cuda.set_sync_debug_mode("error") from the block after its last
+    capture up to the end-of-run read (chip_smoke.SyncChecked): no
+    operation synchronises with the host, and the run makes one host read."""
+    from metaviterbinet_tpu_torch import Config
+    from metaviterbinet_tpu_torch.evaluation.trainer import Trainer
+    from metaviterbinet_tpu_torch.online.engine import run_online
+    from metaviterbinet_tpu_torch.online.graphs import GraphedStep
+    cfg = Config(val_frames=4, subframes_in_frame=5, use_ecc=True, n_symbols=2,
+                 self_supervised=mode == "online", online_meta=False,
+                 self_supervised_iterations=20)
+    trainer = Trainer(cfg, name, verbose=False)
+    params = trainer.spec.init(cfg, gen, "cuda") if trainer.spec.trainable else None
+    tx, rx = trainer.val_dataset.get(10.0, cfg.gamma)
+    h = trainer.decoder_csi(tx.shape[0])
+    GraphedStep.counts.clear()
+    with chip_smoke.SyncChecked(contextlib.nullcontext) as checked:
+        result = run_online(cfg, trainer.spec, params, tx, rx, h, trainer.draws, spans=checked)
+    assert checked.armed_at == 11  # the pilot graph captures at block 10
+    assert result.host_reads == 1

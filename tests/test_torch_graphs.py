@@ -2,12 +2,12 @@
 each against the eager formulation it replaces, bit for bit (the same f32
 operations in the same order, so no tolerance).
 
-  - the optimizers with the bias correction read from a tensor
-    (Optimizer.advance + apply, what a captured step runs) against the
-    host floats of Optimizer.step, over 300 steps;
-  - a block's select_batch draws made up front against one per step;
-  - the self-supervised step and the MAML pair step, vnet and lstm,
-    against the eager loop of loss, gradient and Optimizer.step;
+  - the optimizers with the bias correction gathered from the table at the
+    device count (what a captured step runs) against the host rows of a
+    count kept on the host, over 300 steps;
+  - a run's select_batch draws made up front;
+  - the engine's self-supervised chunk and the MAML pair step, vnet and
+    lstm, against the eager loop of loss, gradient and Optimizer.step;
   - the offline word sweep through its graphed step, vnet and lstm, against
     the eager Optimizer.step loop over 300 words;
   - a graphed call whose state is a parameter dict or nothing (the engine's
@@ -22,12 +22,12 @@ import torch
 
 from metaviterbinet_tpu_torch import Config
 from metaviterbinet_tpu_torch.detectors import DETECTORS
-from metaviterbinet_tpu_torch.online.engine import Draws, make_self_supervised_step
-from metaviterbinet_tpu_torch.online.graphs import GraphedStep, device_rows
+from metaviterbinet_tpu_torch.online.engine import Draws, make_adapt_step
+from metaviterbinet_tpu_torch.online.graphs import GraphedStep
 from metaviterbinet_tpu_torch.train.loop import word_sweep
 from metaviterbinet_tpu_torch.train.losses import make_loss_fn, select_batch
 from metaviterbinet_tpu_torch.train.meta import make_maml_step
-from metaviterbinet_tpu_torch.train.optim import Optimizer
+from metaviterbinet_tpu_torch.train.optim import ADAM_B1, ADAM_B2, Optimizer, _bias_correction
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
@@ -50,35 +50,55 @@ def _twins(name: str, seed: int):
                                                   "cpu")) for _ in range(2)]
 
 
+def _host_row(opt_type: str, count: int) -> tuple[float, float]:
+    """The bias-correction factors of step `count` as a count kept on the
+    host gives them: float32 reciprocals of optax's float32 1 - b^count
+    (ones for RMSprop and SGD, which keep no count)."""
+    if opt_type != "Adam":
+        return 1.0, 1.0
+    one = np.float32(1.0)
+    return (float(one / np.float32(_bias_correction(ADAM_B1, count))),
+            float(one / np.float32(_bias_correction(ADAM_B2, count))))
+
+
 @pytest.mark.parametrize("opt_type", ["Adam", "RMSprop", "SGD"])
 @pytest.mark.parametrize("clip", [0.0, 0.05])
 def test_bias_correction_from_a_tensor_is_bit_equal_to_host_floats(opt_type, clip):
+    """Optimizer.step, which gathers Adam's factors from the table at the
+    device count and advances it there, against apply with the host row of
+    each step's count, over 300 steps, with and without clipping."""
     rng = np.random.default_rng(3)
     params = {k: torch.tensor(rng.normal(size=shape).astype(np.float32))
               for k, shape in (("w", (50, 100)), ("b", (50,)))}
     twin = {k: v.clone() for k, v in params.items()}
     opt = Optimizer(opt_type, 1e-3, clip)
     host, dev = opt.init(params), opt.init(twin)
-    for _ in range(300):
+    for count in range(1, 301):
         grads = {k: torch.tensor((0.1 * rng.normal(size=v.shape)).astype(np.float32))
                  for k, v in params.items()}
-        opt.step(params, grads, host)
-        opt.apply(twin, grads, dev, device_rows(opt.advance(dev, 1), CPU)[0])
-    assert host.count == (300 if opt_type == "Adam" else 0)
+        opt.apply(params, grads, host, _host_row(opt_type, count))
+        opt.step(twin, grads, dev)
+    assert dev.count.dtype == torch.int32 and dev.count.shape == ()
+    assert int(dev.count) == (300 if opt_type == "Adam" else 0)
+    host.count.fill_(int(dev.count))
     _assert_state_equal(params, twin, host, dev)
 
 
 def test_a_blocks_select_draws_up_front_equal_one_per_step():
+    """Draws.select_run: the select_batch indices of every step of every
+    block, drawn at once: select_batch's law row by row (train_minibatch_size
+    distinct indices in [1, n): index 0 has weight 0), the same rows from
+    the same seed, and other rows for other blocks and steps."""
     cfg = Config()
-    n_steps, T = cfg.self_supervised_iterations, 136
-    per_step, up_front = (Draws(cfg, DETECTORS["vnet"], CPU, torch.Generator().manual_seed(4),
-                                torch.Generator()) for _ in range(2))
-    want = torch.stack([per_step.select(0, step, T) for step in range(n_steps)])
-    got = up_front.select_steps(0, n_steps, T)
-    assert got.shape == (n_steps, cfg.train_minibatch_size)
-    assert torch.equal(got, want)
-    # and the stream is left where the per-step draws leave it
-    assert torch.equal(up_front.select(1, 0, T), per_step.select(1, 0, T))
+    n_words, n_steps, T = 12, cfg.self_supervised_iterations, 136
+    first, again = (Draws(cfg, DETECTORS["vnet"], CPU, torch.Generator().manual_seed(4),
+                          torch.Generator()).select_run(n_words, n_steps, T) for _ in range(2))
+    assert first.shape == (n_words, n_steps, cfg.train_minibatch_size)
+    assert torch.equal(first, again)
+    rows = first.reshape(-1, cfg.train_minibatch_size)
+    assert int(rows.min()) >= 1 and int(rows.max()) < T
+    assert all(len(set(r.tolist())) == cfg.train_minibatch_size for r in rows)
+    assert len({tuple(r.tolist()) for r in rows}) == n_words * n_steps
 
 
 def _words(n: int, T: int, seed: int):
@@ -89,29 +109,32 @@ def _words(n: int, T: int, seed: int):
 
 @pytest.mark.parametrize("name", ["vnet", "lstm"])
 def test_self_supervised_step_is_bit_equal_to_the_eager_loop(name):
-    """The engine's block: the draws up front, the bias corrections of the
-    block's steps as one tensor, then the step per row; against the eager
-    loop of per-step draws and Optimizer.step."""
+    """The engine's block: its self-supervised chunk (make_adapt_step) in
+    calls of 3 steps under an open gate, on the block's word and label and
+    its rows of the draws up front; against the eager loop of per-step
+    draws and Optimizer.step. A block with the gate closed changes
+    nothing."""
     spec, (eager, graphed) = _twins(name, 5)
     cfg = Config(train_minibatch_size=8)
-    T, n_steps = 24, 6
+    T, n_steps, chunk = 24, 6, 3
     rx, label = _words(1, T, 6)
     loss_fn = make_loss_fn(spec.score, spec.label_kind, L, spec.subsample_loss)
     opt = Optimizer("Adam", 1e-3)
     s_eager, s_graphed = opt.init(eager), opt.init(graphed)
-    d_eager, d_graphed = (Draws(cfg, spec, CPU, torch.Generator().manual_seed(7),
-                                torch.Generator()) for _ in range(2))
-    ss_step = make_self_supervised_step(loss_fn, opt)
-    for _ in range(2):  # two blocks, the count carried
-        for step in range(n_steps):
-            loss = loss_fn(eager, rx, label, d_eager.select(0, step, T))
-            grads = torch.autograd.grad(loss, list(eager.values()))
-            opt.step(eager, dict(zip(eager, grads)), s_eager)
-        idx = d_graphed.select_steps(0, n_steps, T)
-        bc = device_rows(opt.advance(s_graphed, n_steps), CPU)
-        for step in range(n_steps):
-            ss_step(graphed, s_graphed, rx, label, idx[step], bc[step])
-    assert s_graphed.count == 2 * n_steps
+    select = Draws(cfg, spec, CPU, torch.Generator().manual_seed(7),
+                   torch.Generator()).select_run(3, n_steps, T)
+    adapt = make_adapt_step(cfg, opt, loss_fn, False, chunk)
+    st = {"gate": torch.tensor(True), "rx": rx, "label": label}
+    for block, gate in enumerate((True, False, True)):  # the count carried
+        st["gate"].fill_(gate)
+        if gate:
+            for step in range(n_steps):
+                loss = loss_fn(eager, rx, label, select[block, step])
+                grads = torch.autograd.grad(loss, list(eager.values()))
+                opt.step(eager, dict(zip(eager, grads)), s_eager)
+        for first in range(0, n_steps, chunk):
+            adapt(graphed, s_graphed, st, select[block, first:first + chunk])
+    assert int(s_graphed.count) == 2 * n_steps
     _assert_state_equal(eager, graphed, s_eager, s_graphed)
 
 

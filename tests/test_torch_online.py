@@ -76,6 +76,11 @@ class JaxDraws(Draws):
         k = jax.random.split(self.k_ss[count], self.cfg.self_supervised_iterations)[step]
         return torch.tensor(np.asarray(j_select_batch(k, n, self.cfg.train_minibatch_size)))
 
+    def select_run(self, n_words, n_steps, n):
+        """The run's select rows, block by block, from each block's k_ss."""
+        return torch.stack([torch.stack([self.select(count, step, n) for step in range(n_steps)])
+                            for count in range(n_words)])
+
     def init_params(self, count):
         p = _jax_init(self.cfg, self.name)(self.k_init[count])
         return params_from_jax({k: np.asarray(v) for k, v in p.items()}, device="cpu")
