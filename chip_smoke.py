@@ -41,16 +41,18 @@ Phases, each of which fails the run on error:
   5. online   the paper's by-word protocol through Trainer.evaluate: 300
               blocks on the type-2 test channel at 10 dB, in a temporary
               weights directory so that the checkpoint is trained on the
-              miss: meta_vnet in meta mode (meta_train, then MAML every 5
-              blocks and K6 on every gated block), vnet in joint mode
+              miss: meta_vnet in meta mode (meta_train, then a meta slot
+              every 5 blocks, decided on the card: the query draws of
+              the buffer's fill, the MAML pairs with duplicates masked,
+              each under an IF node; and K6 on every gated block), vnet
+              in joint mode
               (train, then detection only), vnet in online mode (the joint
               cell's checkpoint, then 200 graphed self-supervised steps per
               gated block on a subsampled loss, so no K6) and va in joint
               mode (K2 per block, nothing trained), each against its
               recorded reference band; launch counts (kernel executions,
               inside graphs and their IF nodes too), the engine's host
-              reads (1 a run, 1 + the candidate meta slots in meta mode),
-              the block loop under torch.cuda.set_sync_debug_mode("error")
+              reads (1 a run, a meta run's too), the block loop under torch.cuda.set_sync_debug_mode("error")
               from the block after its last capture to the end-of-run read
               (SyncChecked), buffer fill, seconds of train-on-miss (the
               word sweep, chunk graphs), of the 300 blocks (host clock to a
@@ -64,7 +66,9 @@ Phases, each of which fails the run on error:
               blocks of meta_vnet, vnet online, vnet joint and va joint
               graphed against the same calls with capture patched out
               (no_capture: per-block SERs equal, the same launches, final
-              params 0 apart), meta_vnet's once more on the CPU, and vnet's
+              params 0 apart; meta_vnet's MAML pair count equal too),
+              meta_vnet's once more on the CPU (SERs and pair count equal),
+              and vnet's
               train-on-miss uncaptured (its checkpoint's params 0 from the
               graphed one's);
   5b. lstm    the LSTM family (2 x 256 LSTM, window 4), which has no kernel,
@@ -442,11 +446,10 @@ class SyncChecked:
     first block at which every graph of the run so far has had its warm-up
     calls and its capture (GraphedStep.counts) to the end of the run, the
     block loop runs under torch.cuda.set_sync_debug_mode("error"), so that
-    any host synchronisation raises, except inside its "sync" spans (the
-    engine's host reads: a candidate meta slot's and the end of the run's)
-    and "meta" spans (a meta slot's adaptation, whose MAML step may still
-    capture). A context manager: the mode is reset on exit. `armed_at` is
-    the block from which the check ran (None: never)."""
+    any host synchronisation raises, except inside its "sync" span (the
+    engine's one host read, at the end of the run). A context manager: the
+    mode is reset on exit. `armed_at` is the block from which the check ran
+    (None: never)."""
 
     def __init__(self, inner):
         self.inner, self.armed_at, self.block = inner, None, -1
@@ -470,7 +473,7 @@ class SyncChecked:
             if self.armed_at is None and self.all_captured():
                 self.armed_at = self.block
                 torch.cuda.set_sync_debug_mode("error")
-        paused = self.armed_at is not None and name in ("sync", "meta")
+        paused = self.armed_at is not None and name == "sync"
         if paused:
             torch.cuda.set_sync_debug_mode(0)
         with self.inner(name):
@@ -1071,9 +1074,6 @@ def run_by_word(name: str, mode: str, weights_dir: str, band: tuple) -> dict:
     mean_ber = float(np.mean(sers[di]))
     n_words = cfg.n_words("val")
     want_reads = 1
-    if mode == "meta":  # the candidate meta slots
-        want_reads += sum(1 for c in range(n_words)
-                          if c % cfg.meta_subframes == 0 and c >= cfg.meta_subframes)
     print(f"{name} {mode} mode: train-on-miss {train_s:.3f} s (launches {train_launches}); "
           f"300 blocks {blocks_s:.3f} s on the host clock to a synchronise, "
           f"{blocks_event_s:.3f} s between CUDA events; host reads {result.host_reads} "
@@ -1392,9 +1392,9 @@ def first_blocks(name: str, cfg: Config, n: int, ways=("graphed", "uncaptured"),
     for way in ways:
         device = "cpu" if way == "cpu" else "cuda"
         captured = way.startswith("graphed")
-        draws = CountingDraws(cfg, trainer.spec, torch.device(device),
-                              torch.Generator(device=device).manual_seed(SEED),
-                              torch.Generator().manual_seed(SEED))
+        draws = Draws(cfg, trainer.spec, torch.device(device),
+                      torch.Generator(device=device).manual_seed(SEED),
+                      torch.Generator().manual_seed(SEED))
         spans = CudaSpans() if device == "cuda" else contextlib.nullcontext
         zero_launches()
         zero_steps()
@@ -1410,11 +1410,11 @@ def first_blocks(name: str, cfg: Config, n: int, ways=("graphed", "uncaptured"),
             seconds = time.perf_counter() - t0
         runs[way] = {"s": seconds, "sers": result.ser_by_word, "n_gated": result.n_gated,
                      "params": trainer.spec.model.param_dict(result.params) if trainable else {},
-                     "maml_steps": draws.maml_steps, "steps": read_steps(),
+                     "maml_steps": result.steps["maml"], "steps": read_steps(),
                      "launches": read_launches(),
                      "parts": spans.seconds() if device == "cuda" else None}
         print(f"{name} first {n} blocks, {way}: {seconds:.2f} s, {result.n_gated} gated, "
-              f"{draws.maml_steps} MAML steps; graphed steps "
+              f"{result.steps['maml']} MAML steps; graphed steps "
               f"{steps_line(runs[way]['steps'], runs[way]['parts'])}")
     return runs
 
@@ -1427,7 +1427,8 @@ def _params_diff(a: dict, b: dict) -> float:
 
 def held_graphed(cell: str, runs: dict, card: str, params_tol: float | None = 0.0) -> dict:
     """The graphed run against the uncaptured one of first_blocks: SER per
-    block equal, the same launches, and the final params at most
+    block equal, the same launches and MAML pair steps (the device's count),
+    and the final params at most
     `params_tol` apart (None: printed only, for meta_lstm, whose
     second-order step is not bit-reproducible on the card, STEP_TOL); prints
     the seconds of each, and where a way ran twice, its two runs' largest
@@ -1441,13 +1442,16 @@ def held_graphed(cell: str, runs: dict, card: str, params_tol: float | None = 0.
     n = len(g["sers"])
     print(f"{cell} first {n} blocks, graphed against uncaptured: SER per block equal "
           f"{bool(np.array_equal(g['sers'], u['sers']))}, final params max |diff| {diff:.3e}, "
-          f"launches {g['launches']} and {u['launches']}; {g['s']:.2f} s against {u['s']:.2f} "
-          f"s [{card}]")
+          f"launches {g['launches']} and {u['launches']}, MAML pair steps {g['maml_steps']} and "
+          f"{u['maml_steps']}; {g['s']:.2f} s against {u['s']:.2f} s [{card}]")
     if not np.array_equal(g["sers"], u["sers"]):
         fail(f"{cell}: the graphed steps and the same steps uncaptured give other SERs: "
              f"{g['sers'].tolist()} against {u['sers'].tolist()}")
     if g["launches"] != u["launches"]:
         fail(f"{cell}: the graphed run launched {g['launches']}, uncaptured {u['launches']}")
+    if g["maml_steps"] != u["maml_steps"]:
+        fail(f"{cell}: the graphed run took {g['maml_steps']} MAML pair steps, uncaptured "
+             f"{u['maml_steps']}")
     if params_tol is not None and diff > params_tol:
         fail(f"{cell}: the graphed run's final params are {diff} from the uncaptured run's")
     return {"blocks": n, "params_max_abs_diff": diff, "again_max_abs_diff": again,
@@ -1533,17 +1537,23 @@ def phase_online(weights_dir: str, card: str) -> dict:
     di = np.arange(n)[np.arange(n) % cfg.subframes_in_frame != 0]
     block_diff = float(np.abs(sers["cuda"] - sers["cpu"]).max())
     mean_diff = abs(float(sers["cuda"][di].mean()) - float(sers["cpu"][di].mean()))
-    print(f"meta_vnet first {n} blocks, card against CPU: largest per-block SER difference "
+    maml = (first["graphed"]["maml_steps"], first["cpu"]["maml_steps"])
+    print(f"meta_vnet first {n} blocks, card against CPU: SER per block equal "
+          f"{bool(np.array_equal(sers['cuda'], sers['cpu']))}, largest per-block SER difference "
           f"{block_diff:.6f} (limit {CARD_CPU_BLOCK_TOL:.6f}), mean data SER difference "
-          f"{mean_diff:.6f} (limit {CARD_CPU_MEAN_TOL:g}); card {sers['cuda'].tolist()}, "
-          f"CPU {sers['cpu'].tolist()}")
+          f"{mean_diff:.6f} (limit {CARD_CPU_MEAN_TOL:g}), MAML pair steps {maml[0]} and "
+          f"{maml[1]}; card {sers['cuda'].tolist()}, CPU {sers['cpu'].tolist()}")
     if block_diff > CARD_CPU_BLOCK_TOL or mean_diff > CARD_CPU_MEAN_TOL:
         fail("meta_vnet: the card and the CPU disagree on the first blocks")
+    # the same SERs, so the same fills at the meta slots and the same draws
+    if not np.array_equal(sers["cuda"], sers["cpu"]) or maml[0] != maml[1] or not maml[0]:
+        fail(f"meta_vnet: the first blocks' SERs or MAML pair steps differ on the card and "
+             f"the CPU (pair steps {maml})")
     for name, run in (("meta_vnet_meta", meta), ("vnet_joint", joint),
                       ("vnet_online", vnet_online), ("va_joint", va_joint)):
         out[name] = {k: v for k, v in run.items() if k not in ("cfg", "trainer", "sers")}
     out["card_vs_cpu"] = {"blocks": n, "max_block_ser_diff": block_diff,
-                          "mean_data_ser_diff": mean_diff}
+                          "mean_data_ser_diff": mean_diff, "maml_steps": maml}
     return out
 
 
@@ -1743,17 +1753,6 @@ def forwards_line(what: str, a: torch.Tensor, b: torch.Tensor) -> dict:
     return out
 
 
-class CountingDraws(Draws):
-    """The engine's draws, counting the MAML steps they make it take: one
-    per distinct query draw (the engine deduplicates them)."""
-    maml_steps = 0
-
-    def j_hats(self, count, iteration, high):
-        j = super().j_hats(count, iteration, high)
-        self.maml_steps += len(torch.unique(j))
-        return j
-
-
 def no_launches(what: str, launches: dict) -> None:
     if any(launches.values()):
         fail(f"{what}: an LSTM path launched a ViterbiNet or VA kernel: {launches}")
@@ -1900,6 +1899,9 @@ def meta_lstm_cell(weights_dir: str, card: str) -> dict:
         no_launches(f"meta_lstm by-word blocks, {way}", runs[way]["launches"])
     if not runs["graphed"]["maml_steps"]:
         fail(f"meta_lstm: no meta event in the first {n} blocks")
+    pair_steps = {way: run["maml_steps"] for way, run in runs.items()}
+    if len(set(pair_steps.values())) != 1:
+        fail(f"meta_lstm: the ways took other MAML pair steps: {pair_steps}")
     held = held_graphed("meta_lstm", runs, card, params_tol=None)
     block_diff = float(np.abs(runs["graphed"]["sers"] - runs["cpu"]["sers"]).max())
     print(f"meta_lstm first {n} blocks, card against CPU: largest per-block SER difference "

@@ -56,7 +56,7 @@ from metaviterbinet_tpu_torch.train.checkpoint import (
     load_checkpoint, save_config_provenance, save_params)
 from metaviterbinet_tpu_torch.train.losses import make_loss_fn, select_batch
 from metaviterbinet_tpu_torch.train.loop import make_sweep_step, word_sweep
-from metaviterbinet_tpu_torch.train.meta import make_maml_step, sorted_unique
+from metaviterbinet_tpu_torch.train.meta import make_pair_loop
 from metaviterbinet_tpu_torch.train.optim import Optimizer, OptState
 
 
@@ -284,15 +284,20 @@ class Trainer:
 
     def meta_train(self):
         """Offline MAML meta-training (trainer.py:383-423): per minibatch,
-        query indices j ~ unique(randint(window_size, n_words)), each adapted
-        on (support = the window before j, query = j) of RS-coded words; the
-        weights are saved after every minibatch, so the last one seeds
-        evaluation (trainer.py:420-423)."""
+        meta_j_num query indices j ~ randint(window_size, n_words) drawn on
+        the host, sorted with duplicates masked on the device, each fresh j
+        adapted on (support = the window before j, query = j) of RS-coded
+        words (train/meta.py::make_pair_loop, the JAX package's
+        `run_pairs`); the loss is the mean over the fresh draws, read once
+        per minibatch for its log line. The weights are saved after every
+        minibatch, so the last one seeds evaluation (trainer.py:420-423)."""
         cfg = self.cfg
         optimizer = Optimizer(cfg.optimizer_type, cfg.lr, cfg.clip_grad_norm)
-        maml_step = make_maml_step(self.meta_loss_fn, optimizer, cfg.meta_lr, cfg.MAML)
         w = cfg.window_size
         n_words = cfg.n_words("train")
+        run_pairs = make_pair_loop(self.meta_loss_fn, optimizer, cfg.meta_lr, cfg.MAML, w,
+                                   chunk_steps(cfg.meta_j_num, self.spec.model.MAML_NODES))
+        st = None  # the minibatch's words and the loop's sums, on the device
         for snr in (float(s) for s in cfg.snr_range("train")):
             self._log(f"SNR - {snr}, Gamma - {cfg.gamma} (meta)")
             model = self.init_params()
@@ -301,13 +306,15 @@ class Trainer:
             for minibatch in range(1, cfg.train_minibatch_num + 1):
                 tx, rx = self.train_dataset.get(snr, cfg.gamma)
                 tx_coded = rs_encode_bits(tx, cfg.n_symbols) if cfg.use_ecc else tx
-                j_hats = sorted_unique(torch.randint(w, n_words, (cfg.meta_j_num,),
-                                                     generator=self.host_generator))
-                total = rx.new_zeros(())
-                for j in j_hats.tolist():
-                    total = total + maml_step(params, opt_state, rx[j - w:j], tx_coded[j - w:j],
-                                              rx[j:j + 1], tx_coded[j:j + 1])
-                loss = float(total) / max(len(j_hats), 1)
+                if st is None:
+                    st = {"rx": torch.empty_like(rx), "tx": torch.empty_like(rx),
+                          "loss": rx.new_zeros(()),
+                          "pairs": torch.zeros((), dtype=torch.int32, device=rx.device)}
+                st["rx"].copy_(rx)
+                st["tx"].copy_(tx_coded)
+                j_hats = torch.randint(w, n_words, (cfg.meta_j_num,),
+                                       generator=self.host_generator).to(self.device)
+                loss = float(run_pairs(params, opt_state, st, j_hats))
                 ser = self.single_eval_at_point(model, snr, cfg.gamma)
                 self._log(f"Minibatch {minibatch}, ser - {ser}, loss {loss:.4f}")
                 self._metric("meta_train_minibatch", snr=snr, minibatch=minibatch, ser=ser,

@@ -39,6 +39,10 @@ PARAM_NAMES = LSTM_WEIGHTS + ("w_fc", "b_fc")
 # Adam) under torch.profiler, chip_smoke.py phase 7c on an NVIDIA H100 80GB
 # HBM3: the nodes a captured step adds to a graph (online/graphs.py::chunk_steps)
 STEP_NODES = 1305
+# the same of one second-order MAML pair step (inner gradient, query loss
+# through the adapted params, outer gradient, Adam): the nodes a captured
+# pair adds to a graph (train/meta.py::masked_pairs)
+MAML_NODES = 38_000
 
 
 class WindowedLSTM(nn.Module):

@@ -15,8 +15,8 @@ The rules of the JAX engine, kept here:
     meta_subframes and n_valid > 2`, from the params `weights_init` names;
   - support indices wrap negatively through the buffer end at j_hat = 0,
     with mod-n_valid arithmetic;
-  - the query draws of a meta iteration are deduplicated and sorted
-    (torch.unique, trainer.py:336-338): duplicates perform no update;
+  - the query draws of a meta iteration are sorted and their duplicates
+    masked (torch.unique, trainer.py:336-338): duplicates perform no update;
   - SER is scored against the true transmitted word, and is the gate;
   - with an initial buffer (buffer_empty=False) the buffer starts full of
     train-channel words and stays full (a ring); an empty-start buffer past
@@ -27,13 +27,17 @@ The rules of the JAX engine, kept here:
 The JAX engine is one `lax.scan` over blocks, its gate, buffer append,
 meta slot and self-supervised loop `lax.cond`s inside it. Here the blocks
 run in a Python loop that only enqueues work on the device: the gate, the
-buffer and its fill, the SER of every block and the count of gated blocks
-are device tensors (the run state, a dict of tensors that the graphs hold),
-and the host reads them
-once, at the end of the run (`OnlineResult.host_reads`). A meta cell reads
-the buffer's fill once more at each candidate meta slot (`count %
-meta_subframes == 0` and `count >= meta_subframes`): its query draws are
-made on the host and bounded by the fill, so the slot stays a host step.
+buffer and its fill, whether a meta slot fires, the SER of every block and
+the counts of gated blocks and of MAML pair steps are device tensors (the
+run state, a dict of tensors that the graphs hold), and the host reads
+them once, at the end of the run (`OnlineResult.host_reads`). The host
+decides only what the block count decides: pilot or data, and whether the
+block is a candidate meta slot (`count % meta_subframes == 0` and `count >=
+meta_subframes`). Every random draw of the run is made at its start
+(`Draws`): the select_batch rows of every self-supervised step, and for
+every candidate meta slot its query draws at every bound the buffer's fill
+can set (`Draws.j_hat_table`) and, under weights_init='random', its fresh
+params.
 
 On the card each part of a block is a CUDA graph (online/graphs.py),
 captured once per run and replayed once per block:
@@ -42,20 +46,26 @@ captured once per run and replayed once per block:
     count written to the run state, and the buffer append as device index
     arithmetic (`append`); one graph for pilot and one for data blocks,
     reading the live params in place, so one capture serves the whole run,
-    across the meta events' restores;
+    across the meta slots' restores;
+  - at a candidate meta slot, the JAX engine's `run_meta` under
+    `lax.cond(do_meta)`, `do_meta = n_valid > 2` computed on the device:
+    the restore that weights_init names under `when(do_meta)`; for each of
+    the meta_train_iterations, the query draws of the fill's bound
+    `max(n_valid - 2, 1)` gathered on the device from the slot's table,
+    sorted with their duplicates masked, and the MAML pair steps (train/
+    meta.py) in graphs of `chunk_steps(meta_j_num, MAML_NODES)` pairs, pair
+    i under `when(do_meta & fresh[i])` with its support and query rows
+    gathered from the buffer by device index arithmetic; then the saved
+    params set to the adapted ones under `when(do_meta)`;
   - the self-supervised loop, the JAX engine's `sgd_steps` under
     `lax.cond(gate)`: its `self_supervised_iterations` steps (loss,
     gradient, optimizer update) as graphs of `chunk_steps` steps back to
     back, each under `when(gate)`, a CUDA graph IF node that the device
-    takes or skips by the gate, with the block's select_batch rows (drawn
-    for the whole run at its start, `Draws.select_run`) as the chunk's
-    input and Adam's bias correction read on the device by the optimizer's
-    count (train/optim.py);
+    takes or skips by the gate, with the block's select_batch rows as the
+    chunk's input and Adam's bias correction read on the device by the
+    optimizer's count (train/optim.py);
   - in a meta cell, the restore of the meta-adapted params before the
-    self-supervised loop, under the same gate;
-  - the MAML pair step (train/meta.py), replayed once per distinct query
-    draw at a meta slot, its support and query rows copied into the
-    graph's inputs.
+    self-supervised loop, under the same gate.
 On the CPU the same functions run directly, `when` a host branch.
 
 The self-supervised step for the meta loss (CE over states, no
@@ -83,7 +93,7 @@ from metaviterbinet_tpu_torch.online.graphs import GraphedStep, chunk_steps, whe
 from metaviterbinet_tpu_torch.ops.trellis import calculate_states
 from metaviterbinet_tpu_torch.train.loop import sgd_step
 from metaviterbinet_tpu_torch.train.losses import make_loss_fn
-from metaviterbinet_tpu_torch.train.meta import make_maml_step, sorted_unique
+from metaviterbinet_tpu_torch.train.meta import maml_pair_step, masked_pairs
 from metaviterbinet_tpu_torch.train.optim import ADAM_B1, ADAM_B2, ADAM_EPS, Optimizer
 
 
@@ -93,9 +103,9 @@ class OnlineResult(NamedTuple):
     n_buffer: int             # final buffer fill
     n_gated: int              # blocks that passed the gate
     steps: dict               # steps taken by graphed step: "self_supervised", "maml"
-    # the loop's reads of device state: one at the end of the run, and one
-    # at each candidate meta slot of a meta cell (on the card the warm-up
-    # calls of its graphs read their gate too, online/graphs.py::when)
+    # the loop's reads of device state: one, at the end of the run (on the
+    # card the warm-up calls of its graphs read their gates too,
+    # online/graphs.py::when)
     host_reads: int
 
 
@@ -110,9 +120,25 @@ class Draws:
         self.cfg, self.spec, self.device = cfg, spec, device
         self.generator, self.host_generator = generator, host_generator
 
-    def j_hats(self, count: int, iteration: int, high: int) -> torch.Tensor:
-        """meta_j_num query draws in [0, high), on the CPU."""
-        return torch.randint(0, high, (self.cfg.meta_j_num,), generator=self.host_generator)
+    def j_hat_table(self, counts: list[int]) -> torch.Tensor:
+        """[len(counts), meta_train_iterations, n_bounds(cfg), meta_j_num]
+        int64 on the device: for each candidate meta slot (its block count)
+        and iteration, row b - 1 holds the meta_j_num query draws in [0, b),
+        for every bound b the buffer's fill can give (`n_bounds`). The
+        draws are torch.randint's on the host generator in slot and
+        iteration order, the ones a draw of meta_j_num at each slot and
+        iteration in turn makes at that bound: a draw below 2**28 takes one
+        32-bit word a value whatever its bound, so one draw of them all from
+        the same state per bound gives every row, and leaves the generator
+        where the draws at one bound leave it."""
+        cfg = self.cfg
+        shape = (len(counts), cfg.meta_train_iterations, cfg.meta_j_num)
+        state = self.host_generator.get_state()
+        rows = []
+        for high in range(1, n_bounds(cfg) + 1):
+            self.host_generator.set_state(state)
+            rows.append(torch.randint(0, high, shape, generator=self.host_generator))
+        return torch.stack(rows, dim=2).to(self.device)
 
     def select_run(self, n_words: int, n_steps: int, n: int) -> torch.Tensor:
         """[n_words, n_steps, train_minibatch_size]: the select_batch indices
@@ -126,8 +152,20 @@ class Draws:
         return rows.reshape(n_words, n_steps, -1)
 
     def init_params(self, count: int):
-        """Fresh params for weights_init='random'."""
+        """Fresh params for weights_init='random' at the meta slot of block
+        `count`."""
         return self.spec.init(self.cfg, self.generator, self.device)
+
+
+def n_bounds(cfg: Config) -> int:
+    """The bounds `max(n_valid - 2, 1)` of a meta slot's query draws that a
+    buffer of cfg.buffer_capacity words can give: 1 .. this."""
+    return max(cfg.buffer_capacity - 2, 1)
+
+
+def meta_slots(cfg: Config, n_words: int) -> list[int]:
+    """The blocks of a run that are candidate meta slots."""
+    return [c for c in range(n_words) if c % cfg.meta_subframes == 0 and c >= cfg.meta_subframes]
 
 
 @torch.no_grad()
@@ -231,6 +269,51 @@ def make_adapt_step(cfg: Config, optimizer: Optimizer, loss_fn: Optional[Callabl
                        "self_supervised", n_state=3)
 
 
+def make_meta_steps(cfg: Config, optimizer: Optimizer, loss_fn: Callable,
+                    chunk: int) -> tuple[GraphedStep, GraphedStep, GraphedStep]:
+    """The JAX engine's `run_meta` under `lax.cond(do_meta)`, `do_meta =
+    n_valid > 2` read from the run state `st` on the device, as three
+    graphed calls:
+      - restore(p, opt_state, st, src): p <- src, the params weights_init
+        names, and under weights_init='random' a fresh optimizer state;
+      - pairs(p, opt_state, st, table [n_bounds, meta_j_num], first [1]):
+        `chunk` pairs from `first` of one meta iteration (its `meta_adapt`),
+        the query draws the table's row at the fill's bound `max(n_valid -
+        2, 1)`, each pair under `when(do_meta & fresh)` (masked_pairs) on
+        the buffer's rows;
+      - save(saved, p, st): saved <- p."""
+    cap, w = cfg.buffer_capacity, cfg.window_size
+    reset = cfg.weights_init == "random"
+    pair_step = maml_pair_step(loss_fn, optimizer, cfg.meta_lr, cfg.MAML)
+
+    def do_meta(st):
+        return st["n_valid"] > 2
+
+    def rows(st, j):
+        # the window before each logical slot j, wrapping negatively through
+        # the fill, and slot j, as physical slots of the ring
+        logical = (j[:, None] + torch.arange(-w, 0, device=j.device)) \
+            % torch.clamp(st["n_valid"], min=1)
+        support, query = (st["start"] + logical) % cap, (st["start"] + j[:, None]) % cap
+        return st["buf_rx"][support], st["buf_tx"][support], st["buf_rx"][query], st["buf_tx"][query]
+
+    def init(p, opt_state, src):
+        _restore(p, src)
+        if reset:
+            optimizer.init(p, out=opt_state)
+
+    def pairs(p, opt_state, st, table, first):
+        bound = torch.clamp(st["n_valid"] - 2, min=1)
+        j_hats = table.index_select(0, (bound - 1).reshape(1).long())[0]
+        masked_pairs(pair_step, rows, p, opt_state, st, j_hats, first, chunk, do_meta(st))
+
+    return (GraphedStep(lambda p, o, st, src: when(do_meta(st), init, p, o, src), "meta_restore",
+                        n_state=4),
+            GraphedStep(pairs, "maml", n_state=3),
+            GraphedStep(lambda saved, p, st: when(do_meta(st), _restore, saved, p), "meta_save",
+                        n_state=3))
+
+
 def _snapshot(params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     return {k: v.detach().clone() for k, v in params.items()}
 
@@ -264,13 +347,12 @@ def run_online(cfg: Config, spec, params, tx_words: torch.Tensor, rx_words: torc
     CSI (the VA's only). `params` (a model of the spec's family, None for
     the VA) is copied, not changed. `spans(name)` is entered around each
     block's "detect" (detect, RS decode, SER, pseudo-label, gate, append),
-    "adapt" (self-supervision, under the gate) and "meta" (a meta slot's
-    adaptation), and around each host read, "sync" (at a candidate meta
-    slot and at the end of the run), for timing. On the card a span's host
-    clock measures the enqueue: the device runs behind the host until a
-    read."""
+    "adapt" (self-supervision, under the gate) and "meta" (a candidate meta
+    slot's adaptation, under do_meta), and around the run's one host read,
+    "sync", for timing. On the card a span's host clock measures the
+    enqueue: the device runs behind the host until the read."""
     n_words, T = rx_words.shape
-    cap, L, w = cfg.buffer_capacity, cfg.memory_length, cfg.window_size
+    cap, L = cfg.buffer_capacity, cfg.memory_length
     subframes = cfg.subframes_in_frame
     trainable = spec.trainable
     meta = trainable and cfg.online_meta
@@ -298,22 +380,36 @@ def run_online(cfg: Config, spec, params, tx_words: torch.Tensor, rx_words: torc
         if spec.subsample_loss and not fused:
             select = draws.select_run(n_words, n_steps, T)
     if meta:
-        maml_loss_fn = make_loss_fn(spec.meta_score, spec.label_kind, L, spec.subsample_loss,
-                                    cfg.loss_type)
-        maml_step = make_maml_step(maml_loss_fn, optimizer, cfg.meta_lr, cfg.MAML)
-        saved = _snapshot(p)
-        meta_init = saved if meta_init_params is None \
-            else _snapshot(spec.model.param_dict(meta_init_params))
         if cfg.weights_init not in ("last_frame", "random", "meta_training"):
             raise ValueError(f"No such weights init: {cfg.weights_init}")
+        maml_loss_fn = make_loss_fn(spec.meta_score, spec.label_kind, L, spec.subsample_loss,
+                                    cfg.loss_type)
+        saved = _snapshot(p)
         restore = GraphedStep(lambda p, saved, st: when(st["gate"], _restore, p, saved),
                               "restore", n_state=3)
+        # the run's draws for every candidate meta slot, made now
+        slot_of = {c: i for i, c in enumerate(meta_slots(cfg, n_words))}
+        table = draws.j_hat_table(list(slot_of))
+        if cfg.weights_init == "random":
+            drawn = [_snapshot(spec.model.param_dict(draws.init_params(c))) for c in slot_of]
+            src = _snapshot(p)  # each slot's fresh params are copied in
+        elif cfg.weights_init == "last_frame":
+            src = saved
+        else:  # the meta-trained params, by default the run's first
+            src = _snapshot(p if meta_init_params is None
+                            else spec.model.param_dict(meta_init_params))
+        meta_chunk = chunk_steps(cfg.meta_j_num, spec.model.MAML_NODES)
+        firsts = torch.arange(0, cfg.meta_j_num, meta_chunk, device=device)
+        meta_restore, meta_pairs, meta_save = make_meta_steps(cfg, optimizer, maml_loss_fn,
+                                                              meta_chunk)
+        graphed += [meta_restore, meta_pairs, meta_save]
 
     # the run state: what the JAX scan carries besides params and optimizer
     # state, and the per-block results, on the device
     int0 = lambda: torch.zeros((), dtype=torch.int32, device=device)
     st = {"buf_rx": rx_words.new_zeros((cap, T)), "buf_tx": rx_words.new_zeros((cap, T)),
-          "start": int0(), "n_valid": int0(), "n_gated": int0(),
+          "start": int0(), "n_valid": int0(), "n_gated": int0(), "pairs": int0(),
+          "loss": torch.zeros((), dtype=torch.float32, device=device),
           "gate": torch.zeros((), dtype=torch.bool, device=device),
           "block": torch.zeros((), dtype=torch.int64, device=device),
           "sers": torch.zeros(n_words, dtype=torch.float32, device=device),
@@ -327,41 +423,21 @@ def run_online(cfg: Config, spec, params, tx_words: torch.Tensor, rx_words: torc
         st["buf_tx"][:n0] = init_buffer_tx
         st["n_valid"].fill_(n0)
 
-    def meta_adapt(start: int, n_valid: int) -> None:
-        for iteration in range(cfg.meta_train_iterations):
-            j_hats = sorted_unique(draws.j_hats(count, iteration, max(n_valid - 2, 1)))
-            for j in j_hats.tolist():
-                # rows by slicing, so that no index tensor is copied to the card
-                phys_s = [(start + (j + d) % max(n_valid, 1)) % cap for d in range(-w, 0)]
-                q = (start + j) % cap
-                buf_rx, buf_tx = st["buf_rx"], st["buf_tx"]
-                maml_step(p, opt_state, torch.cat([buf_rx[i:i + 1] for i in phys_s]),
-                          torch.cat([buf_tx[i:i + 1] for i in phys_s]),
-                          buf_rx[q:q + 1], buf_tx[q:q + 1])
-                steps["maml"] += 1
-
-    steps = {"self_supervised": 0, "maml": 0}
-    host_reads = 0
     for count in range(n_words):
         with spans("detect"):
             block_step(count % subframes != 0, p, st, rx_words[count:count + 1], tx_words[count],
                        h_words[count:count + 1])
 
-        if meta and count % cfg.meta_subframes == 0 and count >= cfg.meta_subframes:
-            with spans("sync"):  # the buffer's fill bounds the query draws
-                start, n_valid = torch.stack([st["start"], st["n_valid"]]).tolist()
-                host_reads += 1
-            if n_valid > 2:
-                with spans("meta"):
-                    if cfg.weights_init == "last_frame":
-                        _restore(p, saved)
-                    elif cfg.weights_init == "random":
-                        _restore(p, spec.model.param_dict(draws.init_params(count)))
-                        optimizer.init(p, out=opt_state)
-                    else:
-                        _restore(p, meta_init)
-                    meta_adapt(start, n_valid)
-                    _restore(saved, p)
+        if meta and count in slot_of:
+            s = slot_of[count]
+            with spans("meta"):
+                if cfg.weights_init == "random":
+                    _restore(src, drawn[s])
+                meta_restore(p, opt_state, st, src)
+                for iteration in range(cfg.meta_train_iterations):
+                    for c in range(firsts.shape[0]):
+                        meta_pairs(p, opt_state, st, table[s, iteration], firsts[c:c + 1])
+                meta_save(saved, p, st)
 
         if self_sup:
             with spans("adapt"):
@@ -376,14 +452,13 @@ def run_online(cfg: Config, spec, params, tx_words: torch.Tensor, rx_words: torc
 
     with spans("sync"):  # the run's one read: SERs, counts and conditional launches
         hits = [h for g in graphed for h, _ in g.conditional]
-        ints = torch.stack([st["n_gated"], st["n_valid"], *hits]).to(torch.float32)
+        ints = torch.stack([st["n_gated"], st["n_valid"], st["pairs"], *hits]).to(torch.float32)
         read = torch.cat([st["sers"], ints]).cpu().numpy()
-        host_reads += 1
     sers = read[:n_words]
-    n_gated, n_valid, *hits = (int(v) for v in read[n_words:])
+    n_gated, n_valid, pairs, *hits = (int(v) for v in read[n_words:])
     for g in graphed:
         g.settle([hits.pop(0) for _ in g.conditional])
-    if self_sup and not fused:
-        steps["self_supervised"] = n_gated * n_steps
+    steps = {"self_supervised": n_gated * n_steps if self_sup and not fused else 0,
+             "maml": pairs}
     return OnlineResult(ser_by_word=sers, params=model, n_buffer=n_valid, n_gated=n_gated,
-                        steps=steps, host_reads=host_reads)
+                        steps=steps, host_reads=1)

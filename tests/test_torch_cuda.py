@@ -776,8 +776,8 @@ def test_engine_online_blocks_graphed_equal_the_blocks_uncaptured(gen, name, mod
     block: the block, restore and adapt graphs (the steps under the gate's
     IF node, K6 for meta_vnet) against the same calls with capture patched
     out, from the same draws: SERs per block and final params equal, the
-    same launches (K6 one per gated block), one host read (plus one at each
-    candidate meta slot)."""
+    same launches (K6 one per gated block) and MAML pair steps, one host
+    read (the meta slots decided on the device)."""
     from metaviterbinet_tpu_torch import Config
     from metaviterbinet_tpu_torch.evaluation.trainer import Trainer
     from metaviterbinet_tpu_torch.online.engine import Draws, run_online
@@ -801,28 +801,33 @@ def test_engine_online_blocks_graphed_equal_the_blocks_uncaptured(gen, name, mod
     assert np.array_equal(g.ser_by_word, u.ser_by_word)
     assert g_launches == u_launches
     assert g.n_gated == u.n_gated == 15
-    want_reads = 1 + (4 if mode == "meta" else 0)  # blocks 3, 6, 9, 12
-    assert g.host_reads == u.host_reads == want_reads
-    if mode == "meta":
-        assert g_launches["online_adapt_viterbinet"] == 15
+    assert g.host_reads == u.host_reads == 1
+    assert g.steps["maml"] == u.steps["maml"]
+    if mode == "meta":  # slots at blocks 3, 6, 9 and 12
+        assert g_launches["online_adapt_viterbinet"] == 15 and g.steps["maml"] > 0
     model = trainer.spec.model
     assert chip_smoke.tensors_apart(list(model.param_dict(g.params).values()),
                                     list(model.param_dict(u.params).values())) == 0.0
 
 
-@pytest.mark.parametrize("name,mode", [("va", "joint"), ("vnet", "joint"), ("vnet", "online")])
+@pytest.mark.parametrize("name,mode", [("va", "joint"), ("vnet", "joint"), ("vnet", "online"),
+                                       ("meta_vnet", "meta")])
 def test_blocks_after_the_captures_make_no_host_sync(gen, name, mode):
     """run_online's block loop on the card under
     torch.cuda.set_sync_debug_mode("error") from the block after its last
     capture up to the end-of-run read (chip_smoke.SyncChecked): no
-    operation synchronises with the host, and the run makes one host read."""
+    operation synchronises with the host, and the run makes one host read.
+    The meta run (every block gated, a meta slot every 3 blocks, all its
+    graphs captured by block 9) takes its meta slots at blocks 12, 15 and
+    18 under the check."""
     from metaviterbinet_tpu_torch import Config
     from metaviterbinet_tpu_torch.evaluation.trainer import Trainer
     from metaviterbinet_tpu_torch.online.engine import run_online
     from metaviterbinet_tpu_torch.online.graphs import GraphedStep
+    meta = dict(ser_thresh=1.0, meta_subframes=3) if mode == "meta" else {}
     cfg = Config(val_frames=4, subframes_in_frame=5, use_ecc=True, n_symbols=2,
-                 self_supervised=mode == "online", online_meta=False,
-                 self_supervised_iterations=20)
+                 self_supervised=mode != "joint", online_meta=mode == "meta",
+                 self_supervised_iterations=20, **meta)
     trainer = Trainer(cfg, name, verbose=False)
     params = trainer.spec.init(cfg, gen, "cuda") if trainer.spec.trainable else None
     tx, rx = trainer.val_dataset.get(10.0, cfg.gamma)
@@ -832,3 +837,104 @@ def test_blocks_after_the_captures_make_no_host_sync(gen, name, mode):
         result = run_online(cfg, trainer.spec, params, tx, rx, h, trainer.draws, spans=checked)
     assert checked.armed_at == 11  # the pilot graph captures at block 10
     assert result.host_reads == 1
+    if mode == "meta":
+        assert result.steps["maml"] > 0
+
+
+# ------------------------------------------------ the meta slot on the card
+
+@pytest.mark.parametrize("name,weights_init", [
+    ("meta_vnet", "last_frame"), ("meta_vnet", "meta_training"), ("meta_vnet", "random"),
+    ("meta_lstm", "last_frame")])
+def test_meta_slot_graphed_equals_the_slot_uncaptured(gen, name, weights_init):
+    """run_online's meta slots as graphs on the card (the restore that
+    weights_init names and the saved params under IF nodes on do_meta, the
+    masked MAML pairs in chunk graphs, each pair under an IF node on
+    do_meta & fresh) against the same calls with capture patched out, 10
+    blocks at the protocol's width, every block gated, slots at blocks 3, 6
+    and 9 (the first with 4 words buffered, so its draws repeat): SERs per
+    block, MAML pair steps and launches equal, one host read, final params
+    0 apart (meta_lstm within chip_smoke.STEP_TOL: its second-order step
+    does not repeat bit for bit on fresh tensors)."""
+    from metaviterbinet_tpu_torch import Config
+    from metaviterbinet_tpu_torch.evaluation.trainer import Trainer
+    from metaviterbinet_tpu_torch.online.engine import Draws, run_online
+    lstm_cut = dict(meta_train_iterations=2, meta_j_num=4) if name == "meta_lstm" else {}
+    cfg = Config(val_frames=2, subframes_in_frame=5, use_ecc=True, n_symbols=2, ser_thresh=1.0,
+                 self_supervised=True, online_meta=True, meta_subframes=3,
+                 self_supervised_iterations=4, weights_init=weights_init, **lstm_cut)
+    trainer = Trainer(cfg, name, verbose=False)
+    params = trainer.spec.init(cfg, gen, "cuda")
+    meta_init = trainer.spec.init(cfg, gen, "cuda") if weights_init == "meta_training" else None
+    tx, rx = trainer.val_dataset.get(10.0, cfg.gamma)
+    h = trainer.decoder_csi(tx.shape[0])
+    runs = {}
+    for captured in (True, False):
+        draws = Draws(cfg, trainer.spec, torch.device("cuda"),
+                      torch.Generator(device="cuda").manual_seed(5),
+                      torch.Generator().manual_seed(5))
+        chip_smoke.zero_launches()
+        with contextlib.nullcontext() if captured else chip_smoke.no_capture():
+            result = run_online(cfg, trainer.spec, params, tx, rx, h, draws,
+                                meta_init_params=meta_init)
+        runs[captured] = (result, chip_smoke.read_launches())
+    (g, g_launches), (u, u_launches) = runs[True], runs[False]
+    assert np.array_equal(g.ser_by_word, u.ser_by_word)
+    assert g_launches == u_launches
+    assert g.host_reads == u.host_reads == 1
+    draws_made = 3 * cfg.meta_train_iterations * cfg.meta_j_num
+    assert 0 < g.steps["maml"] == u.steps["maml"] < draws_made
+    model = trainer.spec.model
+    tol = chip_smoke.STEP_TOL.get((f"{name} maml", True), 0.0) if name == "meta_lstm" else 0.0
+    assert chip_smoke.tensors_apart(list(model.param_dict(g.params).values()),
+                                    list(model.param_dict(u.params).values())) <= tol
+
+
+def test_duplicate_pairs_leave_the_count_unchanged_on_the_card(gen):
+    """online/engine.py::make_meta_steps' pairs on the card, 10 pairs a
+    graph: over warm-ups, the capture and replays, each iteration's Adam
+    count advances by its distinct draws at the fill's bound and the
+    device's pair count with it; a duplicate draw, and every pair at a
+    fill of 2 (do_meta false), leaves params, moments and count as they
+    were; the params equal the same calls made directly."""
+    from metaviterbinet_tpu_torch import Config
+    from metaviterbinet_tpu_torch.detectors import DETECTORS
+    from metaviterbinet_tpu_torch.online.engine import make_meta_steps, n_bounds
+    from metaviterbinet_tpu_torch.train.losses import make_loss_fn
+    cfg = Config(buffer_capacity=32)
+    spec = DETECTORS["meta_vnet"]
+    rows = [[5, 5, 5, 5, 5, 5, 5, 5, 5, 5], [0, 1, 2, 3, 4, 5, 6, 7, 8, 9],
+            [3, 1, 3, 1, 3, 1, 3, 1, 3, 1], [9, 9, 0, 0, 4, 4, 2, 2, 7, 7]]
+    fills = (12, 12, 2, 12, 12, 2, 12)  # bound 10 where the fill is 12
+    buf_rx = torch.randn((32, 136), generator=gen, device="cuda")
+    buf_tx = torch.randint(0, 2, (32, 136), generator=gen, device="cuda").float()
+    after = {}
+    for captured in (True, False):
+        opt = Optimizer("Adam", cfg.lr)
+        p = spec.model.param_dict(spec.init(cfg, torch.Generator(device="cuda").manual_seed(1),
+                                            "cuda"))
+        state = opt.init(p)
+        loss_fn = make_loss_fn(spec.meta_score, "states", cfg.memory_length, False)
+        _, pairs, _ = make_meta_steps(cfg, opt, loss_fn, 10)
+        st = {"buf_rx": buf_rx.clone(), "buf_tx": buf_tx.clone(),
+              "start": torch.tensor(30, dtype=torch.int32, device="cuda"),
+              "n_valid": torch.zeros((), dtype=torch.int32, device="cuda"),
+              "pairs": torch.zeros((), dtype=torch.int32, device="cuda"),
+              "loss": torch.zeros((), device="cuda")}
+        first = torch.zeros(1, dtype=torch.int64, device="cuda")
+        count = 0
+        with contextlib.nullcontext() if captured else chip_smoke.no_capture():
+            for i, fill in enumerate(fills):
+                table = torch.zeros((n_bounds(cfg), 10), dtype=torch.int64, device="cuda")
+                table[9] = torch.tensor(rows[i % len(rows)], device="cuda")
+                st["n_valid"].fill_(fill)
+                before = [t.detach().clone() for t in (*p.values(), *state.mu.values())]
+                pairs(p, state, st, table, first)
+                if fill > 2:
+                    count += len(set(rows[i % len(rows)]))
+                else:
+                    now = [t.detach().clone() for t in (*p.values(), *state.mu.values())]
+                    assert all(torch.equal(a, b) for a, b in zip(before, now)), i
+                assert int(state.count) == int(st["pairs"]) == count, i
+        after[captured] = [t.detach().clone() for t in p.values()]
+    assert all(torch.equal(a, b) for a, b in zip(after[True], after[False]))

@@ -175,13 +175,14 @@ TINY = dict(val_block_length=24, train_block_length=24, n_symbols=1, val_frames=
 @pytest.mark.parametrize("name,mode,reads", [
     ("va", {}, 1), ("vnet", {}, 1), ("vnet", dict(self_supervised=True), 1),
     ("lstm", dict(self_supervised=True), 1),
-    # candidate meta slots at blocks 3, 6 and 9 of the 10
-    ("meta_vnet", dict(self_supervised=True, online_meta=True), 4),
-    ("meta_vnet", dict(self_supervised=True, online_meta=True, ser_thresh=0.0), 4)])
+    # candidate meta slots at blocks 3, 6 and 9 of the 10, decided on the
+    # device
+    ("meta_vnet", dict(self_supervised=True, online_meta=True), 1),
+    ("meta_vnet", dict(self_supervised=True, online_meta=True, ser_thresh=0.0), 1)])
 def test_a_run_reads_the_device_once(name, mode, reads):
-    """OnlineResult.host_reads: one read at the end of a joint or online
-    run, one more at each candidate meta slot of a meta run (whether its
-    buffer lets it fire or not); the counts read back are the run's."""
+    """OnlineResult.host_reads: one read at the end of a run, a meta run's
+    too, whose candidate meta slots fire or not on the device; the counts
+    read back are the run's."""
     from metaviterbinet_tpu_torch.data.dataset import ChannelDataset
     cfg = Config(**dict(TINY, **mode))
     spec = DETECTORS[name]
@@ -274,3 +275,63 @@ def test_checkpoints_keep_the_count(tmp_path):
     jcheckpoint.save_params(str(tmp_path / "jax"), 10.0, 0.2, params, 0.25, jstate)
     count = load_checkpoint(str(tmp_path / "jax"), 10.0, 0.2, "cpu")["opt_state"].count
     assert count.dtype == torch.int32 and count.shape == () and int(count) == 3
+
+
+def test_query_table_is_the_host_draws_at_every_bound():
+    """Draws.j_hat_table: row b - 1 of each slot and iteration is what
+    torch.randint(0, b, (meta_j_num,)) on the host generator gives when the
+    slots' and iterations' draws are made one after another at bound b, for
+    every bound the buffer's fill can give; the generator is left where
+    those draws leave it."""
+    from metaviterbinet_tpu_torch.online.engine import meta_slots, n_bounds
+    cfg = Config(**dict(TINY, meta_j_num=5, meta_train_iterations=3))
+    slots = meta_slots(cfg, 10)
+    assert slots == [3, 6, 9] and n_bounds(cfg) == 14
+    host = torch.Generator().manual_seed(21)
+    table = Draws(cfg, DETECTORS["meta_vnet"], torch.device("cpu"), torch.Generator(),
+                  host).j_hat_table(slots)
+    assert table.shape == (3, 3, 14, 5) and table.dtype == torch.int64
+    for high in range(1, n_bounds(cfg) + 1):
+        twin = torch.Generator().manual_seed(21)
+        for s in range(len(slots)):
+            for iteration in range(cfg.meta_train_iterations):
+                want = torch.randint(0, high, (cfg.meta_j_num,), generator=twin)
+                assert torch.equal(table[s, iteration, high - 1], want), (high, s, iteration)
+        assert torch.equal(twin.get_state(), host.get_state())
+
+
+@pytest.mark.parametrize("weights_init", ["last_frame", "random"])
+def test_duplicate_pairs_leave_the_count_unchanged(weights_init):
+    """online/engine.py::make_meta_steps on a buffer of 6 words: the pairs
+    of a meta iteration run one per distinct draw at the fill's bound (4),
+    each an Adam step on the device count, a duplicate none; with the fill
+    at 2 (do_meta false) nothing runs, the restore and save included."""
+    from metaviterbinet_tpu_torch.online.engine import make_meta_steps
+    cfg = Config(**dict(TINY, meta_j_num=6, weights_init=weights_init))
+    spec = DETECTORS["meta_vnet"]
+    p = spec.model.param_dict(spec.init(cfg, torch.Generator().manual_seed(2), "cpu"))
+    opt = Optimizer("Adam", cfg.lr)
+    state = opt.init(p)
+    loss_fn = make_loss_fn(spec.meta_score, "states", cfg.memory_length, False)
+    restore, pairs, save = make_meta_steps(cfg, opt, loss_fn, 3)
+    rng = np.random.default_rng(5)
+    st = {"buf_rx": torch.tensor(rng.normal(size=(16, 24)).astype(np.float32)),
+          "buf_tx": torch.tensor(rng.integers(0, 2, size=(16, 24)).astype(np.float32)),
+          "start": torch.tensor(3, dtype=torch.int32), "n_valid": torch.tensor(6, dtype=torch.int32),
+          "pairs": torch.zeros((), dtype=torch.int32), "loss": torch.zeros(())}
+    table = torch.zeros((14, 6), dtype=torch.int64)
+    table[3] = torch.tensor([2, 0, 2, 3, 0, 2])  # the row of bound 4
+    saved = {k: v.detach().clone() for k, v in p.items()}
+    firsts = torch.tensor([0, 3])
+    for n_valid, want_count in ((6, 3), (2, 3), (6, 6)):
+        st["n_valid"].fill_(n_valid)
+        before = {k: v.detach().clone() for k, v in p.items()}
+        restore(p, state, st, saved)
+        for c in range(2):
+            pairs(p, state, st, table, firsts[c:c + 1])
+        save(saved, p, st)
+        assert int(state.count) == (3 if weights_init == "random" else want_count)
+        assert int(st["pairs"]) == want_count
+        moved = any(not torch.equal(before[k], p[k]) for k in p)
+        assert moved == (n_valid > 2)
+        assert all(torch.equal(saved[k], p[k]) for k in p)

@@ -33,7 +33,8 @@ from metaviterbinet_tpu.train.losses import select_batch as j_select_batch
 from metaviterbinet_tpu_torch import Config
 from metaviterbinet_tpu_torch.detectors import DETECTORS, with_compute_dtype
 from metaviterbinet_tpu_torch.evaluation.trainer import Trainer
-from metaviterbinet_tpu_torch.online.engine import Draws, run_online, uses_fused_adaptation
+from metaviterbinet_tpu_torch.online.engine import (
+    Draws, meta_slots, n_bounds, run_online, uses_fused_adaptation)
 from metaviterbinet_tpu_torch.weights import params_from_jax, params_to_numpy
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
@@ -68,9 +69,17 @@ class JaxDraws(Draws):
             if self_sup:
                 key, self.k_ss[count] = jax.random.split(key)
 
-    def j_hats(self, count, iteration, high):
-        k = jax.random.split(self.k_meta[count], self.cfg.meta_train_iterations)[iteration]
-        return torch.tensor(np.asarray(jax.random.randint(k, (self.cfg.meta_j_num,), 0, high)))
+    def j_hat_table(self, counts):
+        """Each candidate slot's and iteration's JAX draws randint(k,
+        (meta_j_num,), 0, b) at every bound b the fill can give (row b - 1),
+        as the JAX engine draws them at the bound it reads on the device."""
+        cfg = self.cfg
+        highs = jnp.arange(1, n_bounds(cfg) + 1)
+        tables = [[jax.vmap(lambda high: jax.random.randint(k, (cfg.meta_j_num,), 0, high))(highs)
+                   for k in jax.random.split(self.k_meta[count], cfg.meta_train_iterations)]
+                  for count in counts]
+        return torch.tensor(np.asarray(tables), dtype=torch.int64).reshape(
+            len(counts), cfg.meta_train_iterations, n_bounds(cfg), cfg.meta_j_num)
 
     def select(self, count, step, n):
         k = jax.random.split(self.k_ss[count], self.cfg.self_supervised_iterations)[step]
@@ -210,6 +219,42 @@ def test_lstm_engine_matches_jax(name, mode):
     moved = not np.array_equal(params_to_numpy(got.params)["w_hh1"],
                                params_to_numpy(start)["w_hh1"])
     assert moved == bool(mode.get("self_supervised"))
+
+
+@pytest.mark.parametrize("case,kw", [
+    # slots at blocks 3, 6 and 9 with 4, 7 and 10 words buffered: 5 draws
+    # below 2 at the first are certain to repeat
+    ("duplicates certain", dict(meta_j_num=5)),
+    # a slot at every block: at block 1 the buffer holds 2 words and the
+    # slot does not fire, at block 2 the bound is 1 and every draw is 0
+    ("skipped slot", dict(meta_subframes=1))])
+def test_meta_engine_with_a_young_buffer_matches_jax(case, kw):
+    """A meta run whose young buffer makes duplicate query draws certain,
+    or skips a candidate slot (n_valid <= 2): SER per block equal to the
+    JAX engine's, params within PARAMS_ATOL, and the device's count of MAML
+    pair steps the distinct draws of the slots that fired, at the bound
+    each read (ser_thresh 1: the buffer holds count + 1 words after block
+    count)."""
+    want, got, _ = _run_both("meta_vnet", self_supervised=True, online_meta=True,
+                             ser_thresh=1.0, **kw)
+    np.testing.assert_array_equal(got.ser_by_word, np.asarray(want.ser_by_word))
+    _assert_params_close(want.params, got.params)
+    cfg = Config(**dict(TINY, **kw))
+    n_words = got.ser_by_word.shape[0]
+    slots = meta_slots(cfg, n_words)
+    table = JaxDraws(cfg, "meta_vnet", jax.random.PRNGKey(2), n_words, True, True) \
+        .j_hat_table(slots).numpy()
+    pairs, draws = 0, 0
+    for s, count in enumerate(slots):
+        n_valid = min(count + 1, cfg.buffer_capacity)
+        if n_valid > 2:
+            for row in table[s, :, max(n_valid - 2, 1) - 1]:
+                pairs += len(set(row.tolist()))
+                draws += len(row)
+    assert got.host_reads == 1
+    assert got.steps["maml"] == pairs < draws
+    if case == "skipped slot":
+        assert slots[0] == 1
 
 
 def test_first_order_meta_without_self_supervision_matches_jax():

@@ -1,6 +1,7 @@
 """The port's training pieces against the JAX package's (CPU, small shapes):
 optimizers against optax, losses and gradients, the per-word sweep, the MAML
-step, sorted_unique, checkpoints and train-on-miss.
+step, sorted_unique_mask and the masked pair loop, checkpoints and
+train-on-miss.
 
 Inputs come from numpy seeds or the JAX streams; draws the JAX code makes
 from a key (select_batch indices, query draws) are made with jax.random and
@@ -37,7 +38,8 @@ from metaviterbinet_tpu_torch.train.checkpoint import (
     load_checkpoint, save_config_provenance, save_params)
 from metaviterbinet_tpu_torch.train.losses import make_loss_fn, select_batch
 from metaviterbinet_tpu_torch.train.loop import word_sweep
-from metaviterbinet_tpu_torch.train.meta import make_maml_step, sorted_unique
+from metaviterbinet_tpu_torch.train.meta import make_maml_step, make_pair_loop
+from metaviterbinet_tpu_torch.train.meta import sorted_unique_mask as t_sorted_unique_mask
 from metaviterbinet_tpu_torch.train.optim import Optimizer, OptState
 from metaviterbinet_tpu_torch.weights import adam_state_from_jax, params_from_jax, params_to_numpy
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
@@ -294,12 +296,143 @@ def test_maml_orders_differ():
 
 
 def test_sorted_unique_matches_jax():
+    """sorted_unique_mask on seeded draws: the sorted draws and the
+    first-occurrence mask equal JAX's, and the fresh draws are torch.unique's
+    (the reference's dedup)."""
     rng = np.random.RandomState(0)
     for _ in range(20):
         draws = rng.randint(0, rng.randint(1, 12), size=10)
         j, fresh = sorted_unique_mask(jnp.asarray(draws))
-        np.testing.assert_array_equal(sorted_unique(torch.tensor(draws)).numpy(),
-                                      np.asarray(j)[np.asarray(fresh)])
+        got_j, got_fresh = t_sorted_unique_mask(torch.tensor(draws))
+        np.testing.assert_array_equal(got_j.numpy(), np.asarray(j))
+        np.testing.assert_array_equal(got_fresh.numpy(), np.asarray(fresh))
+        np.testing.assert_array_equal(got_j[got_fresh].numpy(),
+                                      torch.unique(torch.tensor(draws)).numpy())
+
+
+@pytest.mark.parametrize("case,draws", [
+    ("all equal", [4] * 10), ("all distinct", [9, 0, 3, 7, 1, 8, 2, 6, 5, 4]),
+    ("bound 1", [0] * 10), ("one draw", [3]), ("two runs", [2, 5, 2, 5, 5, 2, 2, 5, 2, 5])])
+def test_sorted_unique_mask_edge_cases_match_jax(case, draws):
+    j, fresh = sorted_unique_mask(jnp.asarray(draws))
+    got_j, got_fresh = t_sorted_unique_mask(torch.tensor(draws))
+    assert got_j.dtype == torch.int64 and got_fresh.dtype == torch.bool
+    np.testing.assert_array_equal(got_j.numpy(), np.asarray(j))
+    np.testing.assert_array_equal(got_fresh.numpy(), np.asarray(fresh))
+    assert int(got_fresh.sum()) == len(set(draws))
+
+
+def _jax_run_pairs(loss_fn, opt, second_order, w):
+    """The JAX package's masked pair loop, as Trainer.meta_train builds it
+    (metaviterbinet_tpu/evaluation/trainer.py:366-392 there): JAX's
+    sorted_unique_mask and make_maml_step under lax.cond in a scan."""
+    maml_step = j_make_maml_step(loss_fn, opt, 0.1, second_order)
+
+    @jax.jit
+    def run_pairs(params, opt_state, rx, tx_coded, j_hats):
+        j_hats, fresh = sorted_unique_mask(j_hats)
+
+        def pair(carry, inp):
+            j, is_fresh = inp
+
+            def do_pair(c):
+                params, opt_state = c
+                supp = j + jnp.arange(-w, 0)
+                params, opt_state, loss = maml_step(params, opt_state, rx[supp], tx_coded[supp],
+                                                    rx[j[None]], tx_coded[j[None]])
+                return (params, opt_state), loss
+
+            return jax.lax.cond(is_fresh, do_pair, lambda c: (c, 0.0), carry)
+
+        (params, opt_state), losses = jax.lax.scan(pair, (params, opt_state), (j_hats, fresh))
+        return params, opt_state, jnp.sum(losses) / jnp.maximum(jnp.sum(fresh), 1)
+
+    return run_pairs
+
+
+# two minibatches of query draws, with duplicates
+PAIR_DRAWS = ([5, 2, 5, 3, 2, 2], [4, 6, 6, 1, 4, 3])
+
+
+@pytest.mark.parametrize("chunk", [1, 3])
+@pytest.mark.parametrize("second_order", [True, False])
+@pytest.mark.parametrize("family", ["vnet", "lstm"])
+def test_masked_pair_loop_matches_jax_run_pairs(family, second_order, chunk):
+    """train/meta.py::make_pair_loop (the pairs of a meta iteration: the
+    draws sorted and masked, each pair under when(fresh), in graphed calls
+    of `chunk` pairs) against the JAX scan body of sorted_unique_mask and
+    make_maml_step under lax.cond, on the same words and duplicate draws
+    over two minibatches from a carried Adam state: the loss within 1e-5,
+    params within 1e-5 (the LSTM's bit labels through the unrolled
+    forward, as test_lstm_maml_step_matches_jax), the count the fresh
+    draws' and the device's pair count theirs."""
+    from metaviterbinet_tpu_torch.detectors import DETECTORS
+    w, n = 1, 8
+    if family == "vnet":
+        jp = _jparams(8)
+        _, tp = _tparams(jp)
+        rx, tx = _words(n, 24, 9)
+        jloss = j_make_loss_fn(jvnet.score, "states", L, False, 8)
+        tloss = make_loss_fn(tvnet.logits, "states", L, False)
+    else:
+        jp, tp = _lstm_params(8)
+        rx, tx = _words(n, 24, 9)
+        jloss = j_make_loss_fn(jlstm.score, "bits", L, False, 8)
+        tloss = make_loss_fn(DETECTORS["meta_lstm"].meta_score, "bits", L, False)
+    opt = make_optimizer("Adam", 1e-3)
+    state = opt.init(jp)
+    run_jax = _jax_run_pairs(jloss, opt, second_order, w)
+    topt = Optimizer("Adam", 1e-3)
+    tstate = topt.init(tp)
+    run = make_pair_loop(tloss, topt, 0.1, second_order, w, chunk)
+    st = {"rx": torch.tensor(rx), "tx": torch.tensor(tx), "loss": torch.zeros(()),
+          "pairs": torch.zeros((), dtype=torch.int32)}
+    want = jp
+    for draws in PAIR_DRAWS:
+        want, state, want_loss = run_jax(want, state, jnp.asarray(rx), jnp.asarray(tx),
+                                         jnp.asarray(draws))
+        loss = run(tp, tstate, st, torch.tensor(draws))
+        assert loss.dtype == torch.float32 and loss.shape == ()
+        assert abs(float(loss) - float(want_loss)) < 1e-5
+        assert int(st["pairs"]) == len(set(draws))
+    assert int(tstate.count) == int(state[0].count) == sum(len(set(d)) for d in PAIR_DRAWS)
+    _close(tp, want, atol=1e-5)
+
+
+def test_meta_train_matches_jax_run_pairs(tmp_path):
+    """Trainer.meta_train against the JAX formulation of its minibatches:
+    a twin Trainer of the same seeds replays the port's init, train words
+    and host query draws (meta_j_num 6 over 10 words: duplicates likely),
+    and the JAX run_pairs from the same params takes them; the saved
+    checkpoint's params within 1e-5, its loss (the last minibatch's mean
+    over the fresh draws) within 1e-5, and its Adam count the fresh draws'
+    over all minibatches."""
+    from metaviterbinet_tpu_torch.ecc.rs import rs_encode_bits
+    cfg = Config(**dict(TINY, meta_j_num=6, train_minibatch_num=3))
+    t = Trainer(cfg, "meta_vnet", device="cpu", weights_dir=str(tmp_path), verbose=False)
+    t.meta_train()
+    ck = load_checkpoint(str(tmp_path), 10.0, cfg.gamma, "cpu")
+
+    twin = Trainer(cfg, "meta_vnet", device="cpu", weights_dir=str(tmp_path / "twin"),
+                   verbose=False)
+    jp = {k: jnp.asarray(v) for k, v in params_to_numpy(twin.init_params()).items()}
+    opt = make_optimizer(cfg.optimizer_type, cfg.lr)
+    state = opt.init(jp)
+    run_jax = _jax_run_pairs(j_make_loss_fn(jvnet.score, "states", L, False, 8), opt, cfg.MAML,
+                             cfg.window_size)
+    n_words, fresh = cfg.n_words("train"), 0
+    for _ in range(cfg.train_minibatch_num):
+        tx, rx = twin.train_dataset.get(10.0, cfg.gamma)
+        draws = torch.randint(cfg.window_size, n_words, (cfg.meta_j_num,),
+                              generator=twin.host_generator)
+        fresh += len(set(draws.tolist()))
+        jp, state, loss = run_jax(jp, state, jnp.asarray(rx.numpy()),
+                                  jnp.asarray(rs_encode_bits(tx, cfg.n_symbols).numpy()),
+                                  jnp.asarray(draws.numpy()))
+    assert fresh < cfg.meta_j_num * cfg.train_minibatch_num  # a duplicate was masked
+    assert abs(ck["loss"] - float(loss)) < 1e-5
+    assert int(ck["opt_state"].count) == int(state[0].count) == fresh
+    _close(ck["params"], jp, atol=1e-5)
 
 
 # ------------------------------------------------------------------ checkpoints
