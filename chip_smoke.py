@@ -4,8 +4,9 @@
 
 Phases, each of which fails the run on error:
   1. card     print the card's name and power limit (nvidia-smi);
-  2. build    compile the five CUDA kernels and the IF-node helper
-              (online/graphs.py::when) from
+  2. build    compile the five CUDA kernels, the IF-node helper
+              (online/graphs.py::when) and the tracer's stamp
+              (utils/profiling.py::Tracer) from
               metaviterbinet_tpu_torch/kernels/csrc (one nvcc per source,
               started together);
   3. kernels  hold each kernel against its plain PyTorch version on the card:
@@ -56,9 +57,11 @@ Phases, each of which fails the run on error:
               from the block after its last capture to the end-of-run read
               (SyncChecked), buffer fill, seconds of train-on-miss (the
               word sweep, chunk graphs), of the 300 blocks (host clock to a
-              synchronise, and CUDA events) and of their parts (CUDA
-              events), the graphed calls (warm-up, capture, replay: the
-              per-block detect, RS decode, score, gate and append, the
+              synchronise, and CUDA events) and of their parts (the
+              tracer's spans, stamped on the device: its idle share and
+              the block graph's parts too), the graphed calls (warm-up,
+              capture, replay: the per-block detect, RS decode, score,
+              gate and append, the
               steps under the gate, the word sweep) and milliseconds a
               call, and the
               device's idle share and activities a block (torch.profiler, a
@@ -211,6 +214,8 @@ from metaviterbinet_tpu_torch.train.losses import make_loss_fn, select_batch
 from metaviterbinet_tpu_torch.train.loop import word_sweep
 from metaviterbinet_tpu_torch.train.meta import make_maml_step
 from metaviterbinet_tpu_torch.train.optim import ADAM_B1, ADAM_B2, ADAM_EPS, Optimizer
+from metaviterbinet_tpu_torch.utils.profiling import Tracer
+from portbench import trace
 
 SEED = 20260
 # H100 SXM published peaks (NVIDIA data sheet, dense): device memory rate,
@@ -375,29 +380,14 @@ def graph_ms(fn, per_graph: int = 20, replays: int = 10) -> float:
     return ms
 
 
-def device_busy(fn) -> dict:
-    """Run fn() once under torch.profiler (device activity only); return the
-    host-clock wall time, the union of the device's activity intervals, and
-    their count (kernels, copies, fills). The profiler's own host cost
-    lengthens the wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
-                   for e in prof.profiler.kineto_results.events()
-                   if e.device_type() == torch.autograd.DeviceType.CUDA)
-    busy_ns, end = 0, -1
-    for a, b in spans:
-        if b > end:
-            busy_ns += b - max(a, end)
-            end = b
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ns / 1e6, "device_activities": len(spans),
-            "idle_share": (1 - busy_ns / 1e6 / wall_ms) if spans else None}
+def profiled_busy(fn) -> dict:
+    """fn() once under torch.profiler (portbench/trace.py::profiled, device
+    activity only): the host-clock wall time, the union of the device's
+    activity intervals, and their count (kernels, copies, fills). The
+    profiler's own host cost lengthens the wall time."""
+    p = trace.profiled(fn, [])
+    return {"wall_ms": p.wall_ms, "device_busy_ms": p.busy_ms, "device_activities": p.activities,
+            "idle_share": (1 - p.busy_ms / p.wall_ms) if p.activities else None}
 
 
 def busy_line(what: str, b: dict) -> str:
@@ -409,40 +399,15 @@ def busy_line(what: str, b: dict) -> str:
             f"idle share {b['idle_share']:.4f}")
 
 
-class CudaSpans:
-    """`spans` for the online engine: per named part, CUDA events on the
-    device timeline and the host clock, summed per name after the run."""
-
-    def __init__(self):
-        self.events: dict[str, list] = {}
-        self.host_s: dict[str, float] = {}
-
-    def __call__(self, name: str):
-        spans = self
-
-        class _Span:
-            def __enter__(self):
-                self.pair = (torch.cuda.Event(enable_timing=True),
-                             torch.cuda.Event(enable_timing=True))
-                self.pair[0].record()
-                self.t0 = time.perf_counter()
-
-            def __exit__(self, *exc):
-                spans.host_s[name] = spans.host_s.get(name, 0.0) + time.perf_counter() - self.t0
-                self.pair[1].record()
-                spans.events.setdefault(name, []).append(self.pair)
-
-        return _Span()
-
-    def seconds(self) -> dict:
-        """name -> (count, seconds on the device timeline, seconds on the host)."""
-        torch.cuda.synchronize()
-        return {name: (len(pairs), sum(a.elapsed_time(b) for a, b in pairs) / 1e3,
-                       self.host_s[name]) for name, pairs in self.events.items()}
+def span_seconds(tracer: Tracer) -> dict:
+    """name -> (count, seconds on the device timeline from the tracer's
+    stamps, seconds on the host) of the spans of a traced window."""
+    return {name: (t.count, t.device_ms / 1e3, t.host_ms / 1e3)
+            for name, t in tracer.summary().by_name.items()}
 
 
 class SyncChecked:
-    """`spans` for the online engine, around another (CudaSpans): from the
+    """`spans` for the online engine, around another: from the
     first block at which every graph of the run so far has had its warm-up
     calls and its capture (GraphedStep.counts) to the end of the run, the
     block loop runs under torch.cuda.set_sync_debug_mode("error"), so that
@@ -964,7 +929,7 @@ def phase_slice(model: viterbinet.ViterbiNet, trained: viterbinet.ViterbiNet) ->
                           ("vnet", Trainer(vnet_cfg, "vnet", params=model, verbose=False)),
                           ("vnet_chunked", Trainer(chunked_cfg, "vnet", params=trained,
                                                    verbose=False))):
-        busy[name] = device_busy(
+        busy[name] = profiled_busy(
             lambda: trainer.single_eval_at_point(trainer.params, 10.0, cfg.gamma))
         print(busy_line(f"{name} point at 10 dB", busy[name]))
 
@@ -1054,11 +1019,11 @@ def run_by_word(name: str, mode: str, weights_dir: str, band: tuple) -> dict:
     train_launches = read_launches()
     train_steps = read_steps()
 
-    spans = CudaSpans()
+    tracer = Tracer()
     zero_launches()
     zero_steps()
     events = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with SyncChecked(spans) as checked:
+    with tracer, SyncChecked(contextlib.nullcontext) as checked:
         trainer.spans = checked
         t0 = time.perf_counter()
         events[0].record()
@@ -1070,7 +1035,8 @@ def run_by_word(name: str, mode: str, weights_dir: str, band: tuple) -> dict:
     launches = read_launches()
     steps = read_steps()
     result = trainer.online_result
-    parts = spans.seconds()
+    parts = span_seconds(tracer)
+    traced = tracer.summary()
     mean_ber = float(np.mean(sers[di]))
     n_words = cfg.n_words("val")
     want_reads = 1
@@ -1078,9 +1044,15 @@ def run_by_word(name: str, mode: str, weights_dir: str, band: tuple) -> dict:
           f"300 blocks {blocks_s:.3f} s on the host clock to a synchronise, "
           f"{blocks_event_s:.3f} s between CUDA events; host reads {result.host_reads} "
           f"(expected {want_reads}); sync debug mode 'error' from block {checked.armed_at} to "
-          f"the end-of-run read; parts (count, s on the device timeline from CUDA "
-          f"events, s on the host clock, which measures the enqueue): "
+          f"the end-of-run read; parts (count, s on the device timeline from the tracer's "
+          f"stamps, s on the host clock, which measures the enqueue): "
           f"{parts}")
+    blocks = parts.get("block", (0, 0.0, 0.0))[1]
+    print(f"{name} {mode} mode: traced window {traced.window_ms:.3f} ms, idle share "
+          f"{traced.idle_share:.4f}, idle ms by host span {traced.idle_ms}; the block graph's "
+          f"parts {sum(parts.get(p, (0, 0.0, 0.0))[1] for p in BLOCK_PARTS):.4f} s of its "
+          f"{blocks:.4f} s on the device; {traced.dropped} stamps dropped; counts "
+          f"{traced.counters}")
     if result.host_reads != want_reads:
         fail(f"{name} {mode}: {result.host_reads} host reads, expected {want_reads}")
     if checked.armed_at is None or checked.armed_at >= n_words - 1:
@@ -1147,7 +1119,7 @@ def profiled_blocks(cell: str, name: str, cfg: Config, weights_dir: str | None =
     params = trainer.load_weights(snr, cfg.gamma) if trainer.spec.trainable else None
     tx, rx = trainer.val_dataset.get(snr, cfg.gamma)
     h = trainer.decoder_csi(tx.shape[0])
-    busy = device_busy(lambda: run_online(cfg, trainer.spec, params, tx[:n], rx[:n], h[:n],
+    busy = profiled_busy(lambda: run_online(cfg, trainer.spec, params, tx[:n], rx[:n], h[:n],
                                           trainer.draws))
     per_block = busy["device_activities"] / n
     print(busy_line(f"{cell} {n} by-word blocks (a second run)", busy)
@@ -1288,7 +1260,7 @@ def phase_steps(card: str) -> dict:
             for i in range(warm):
                 run(i)
             eager_s = _steps_s(run, warm, n_eager)
-            eager_busy = device_busy(lambda: run(warm + n_eager))
+            eager_busy = profiled_busy(lambda: run(warm + n_eager))
         zero_steps()
         _, _, run = step_case(kind, gen, warm + n_graphed + 1)
         t0 = time.perf_counter()
@@ -1297,7 +1269,7 @@ def phase_steps(card: str) -> dict:
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         graphed_s = _steps_s(run, warm, n_graphed)
-        graphed_busy = device_busy(lambda: run(warm + n_graphed))
+        graphed_busy = profiled_busy(lambda: run(warm + n_graphed))
         counts = read_steps()
         print(f"{kind} step at T = {T_PROTO}: eager {1e3 * eager_s:.3f} ms a step over "
               f"{n_eager} steps, replayed {1e3 * graphed_s:.3f} ms a step over {n_graphed} "
@@ -1349,23 +1321,21 @@ def chunk_line(kind: str, gen: torch.Generator, single_s: float, card: str) -> d
     return {"chunk": chunk, "s_per_step": per_step, "first_s": first_s, "steps": calls * chunk}
 
 
-# the engine's spans that hold each graphed call's calls (the word sweep
-# runs in train-on-miss, outside the engine)
-STEP_SPANS = {"self_supervised": "adapt", "maml": "meta", "detect": "detect"}
+# the block graph's parts, spans inside it (online/engine.py::make_block_step)
+BLOCK_PARTS = ("detect.viterbi", "detect.rs_decode", "detect.label")
 
 
 def steps_line(steps: dict, parts: dict | None) -> str:
-    """The graphed steps' calls by name and kind and, where the run's
-    spans were timed, the milliseconds per step of the span that holds
-    them, on the device timeline (CUDA events) and on the host clock (its
-    warm-up steps and capture included; a replay returns before its work
-    is done)."""
+    """The graphed steps' calls by name and kind and, where the run was
+    traced, the milliseconds per step of the step's spans, on the device
+    timeline (the tracer's stamps) and on the host clock (its warm-up steps
+    and capture included; a replay returns before its work is done)."""
     out = []
     for name, calls in sorted(steps.items()):
         n = sum(calls.values()) - calls["capture"]
         per = ""
-        if parts and STEP_SPANS.get(name) in parts and n:
-            _, device_s, host_s = parts[STEP_SPANS[name]]
+        if parts and name in parts and n:
+            _, device_s, host_s = parts[name]
             per = (f", {1e3 * device_s / n:.3f} ms a step on the device, "
                    f"{1e3 * host_s / n:.3f} on the host")
         out.append(f"{name} {n} steps {calls}{per}")
@@ -1395,16 +1365,15 @@ def first_blocks(name: str, cfg: Config, n: int, ways=("graphed", "uncaptured"),
         draws = Draws(cfg, trainer.spec, torch.device(device),
                       torch.Generator(device=device).manual_seed(SEED),
                       torch.Generator().manual_seed(SEED))
-        spans = CudaSpans() if device == "cuda" else contextlib.nullcontext
+        tracer = Tracer() if device == "cuda" else contextlib.nullcontext()
         zero_launches()
         zero_steps()
-        with contextlib.nullcontext() if captured or device == "cpu" else no_capture():
+        with tracer, contextlib.nullcontext() if captured or device == "cpu" else no_capture():
             t0 = time.perf_counter()
             result = run_online(cfg, trainer.spec,
                                 copy.deepcopy(params).cpu() if device == "cpu" and trainable
                                 else params,
-                                tx[:n].to(device), rx[:n].to(device), h[:n].to(device), draws,
-                                spans=spans)
+                                tx[:n].to(device), rx[:n].to(device), h[:n].to(device), draws)
             if device == "cuda":
                 torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
@@ -1412,7 +1381,7 @@ def first_blocks(name: str, cfg: Config, n: int, ways=("graphed", "uncaptured"),
                      "params": trainer.spec.model.param_dict(result.params) if trainable else {},
                      "maml_steps": result.steps["maml"], "steps": read_steps(),
                      "launches": read_launches(),
-                     "parts": spans.seconds() if device == "cuda" else None}
+                     "parts": span_seconds(tracer) if device == "cuda" else None}
         print(f"{name} first {n} blocks, {way}: {seconds:.2f} s, {result.n_gated} gated, "
               f"{result.steps['maml']} MAML steps; graphed steps "
               f"{steps_line(runs[way]['steps'], runs[way]['parts'])}")
@@ -1832,7 +1801,7 @@ def lstm_cells(weights_dir: str, card: str) -> dict:
             f"lstm (seeded random params) logits of the {tuple(rx.shape)} val batch, card "
             f"(cuDNN) against the CPU", lstm.logits(lstm.param_dict(model), rx),
             lstm.logits(lstm.param_dict(cpu_trainer.params), rx.cpu()))
-    busy = device_busy(lambda: trainer.single_eval_at_point(model, 10.0, cfg.gamma))
+    busy = profiled_busy(lambda: trainer.single_eval_at_point(model, 10.0, cfg.gamma))
     per_1k = point_s / cfg.n_words("val") * 1000
     print(f"lstm (seeded random params) coded BER at 10 dB: {ber:.6f}, {per_1k:.6f} s per 1000 "
           f"words, launches {point_launches}; eval tail on one batch: card {on_card:.6f}, CPU "

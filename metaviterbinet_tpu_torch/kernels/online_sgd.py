@@ -35,6 +35,7 @@ import torch
 from metaviterbinet_tpu_torch.kernels.acs import (
     SUPPORTED_STATES, _check_f32, _check_launch, _library, _route)
 from metaviterbinet_tpu_torch.models.viterbinet import HIDDEN1, HIDDEN2, PARAM_NAMES
+from metaviterbinet_tpu_torch.utils import profiling
 
 MAX_SMEM_BYTES = 232448  # shared memory one CTA may use on an H100
 # CTAs of the kernel's thread-block cluster, fixed in csrc/online_adapt.cu
@@ -88,7 +89,7 @@ def power_table(b1: float, b2: float, device: torch.device) -> torch.Tensor:
     there: make it before a CUDA graph captures the wrapper."""
     key = (b1, b2, device)
     if key not in _power_tables:
-        _power_tables[key] = torch.from_numpy(start_powers_table(b1, b2)).to(device)
+        _power_tables[key] = profiling.upload(torch.from_numpy(start_powers_table(b1, b2)), device)
     return _power_tables[key]
 
 

@@ -95,6 +95,7 @@ from metaviterbinet_tpu_torch.train.loop import sgd_step
 from metaviterbinet_tpu_torch.train.losses import make_loss_fn
 from metaviterbinet_tpu_torch.train.meta import maml_pair_step, masked_pairs
 from metaviterbinet_tpu_torch.train.optim import ADAM_B1, ADAM_B2, ADAM_EPS, Optimizer
+from metaviterbinet_tpu_torch.utils import profiling
 
 
 class OnlineResult(NamedTuple):
@@ -104,8 +105,8 @@ class OnlineResult(NamedTuple):
     n_gated: int              # blocks that passed the gate
     steps: dict               # steps taken by graphed step: "self_supervised", "maml"
     # the loop's reads of device state: one, at the end of the run (on the
-    # card the warm-up calls of its graphs read their gates too,
-    # online/graphs.py::when)
+    # card the warm-up calls of its graphs read their gates too: the
+    # tracer's "host_syncs" counts them all, utils/profiling.py)
     host_reads: int
 
 
@@ -138,7 +139,7 @@ class Draws:
         for high in range(1, n_bounds(cfg) + 1):
             self.host_generator.set_state(state)
             rows.append(torch.randint(0, high, shape, generator=self.host_generator))
-        return torch.stack(rows, dim=2).to(self.device)
+        return profiling.upload(torch.stack(rows, dim=2), self.device)
 
     def select_run(self, n_words: int, n_steps: int, n: int) -> torch.Tensor:
         """[n_words, n_steps, train_minibatch_size]: the select_batch indices
@@ -170,7 +171,8 @@ def meta_slots(cfg: Config, n_words: int) -> list[int]:
 
 @torch.no_grad()
 def detect_decode_score(detect: Callable, rx: torch.Tensor, tx: torch.Tensor, h: torch.Tensor,
-                        nsym: int, use_ecc: bool, is_data: bool):
+                        nsym: int, use_ecc: bool, is_data: bool,
+                        hold: Optional[contextlib.ExitStack] = None):
     """One block of the JAX engine's scan body (`detect_decode_score` in its
     online/engine.py): detect(rx [1, T], h [1, L]) -> [1, T] bits, RS-decode,
     score against the true word tx [n], and form the pseudo-label. Returns
@@ -180,17 +182,27 @@ def detect_decode_score(detect: Callable, rx: torch.Tensor, tx: torch.Tensor, h:
     ser is k * f32(1/n) for k symbol errors, the rounding of jnp.mean (not
     the k/n of torch.mean). The label is the raw detected word on a data
     block with 0 < ser, else the re-encoding of the decoded word (data) or
-    of the true word (pilot)."""
-    detected = detect(rx, h)[0]
-    decoded = rs_decode_bits(detected[None], nsym)[0][0] if use_ecc else detected[:tx.shape[0]]
-    if is_data:
-        ser = (decoded != tx).sum().to(torch.float32) * float(np.float32(1.0 / tx.shape[0]))
-        source = decoded
-    else:
-        ser = detected.new_zeros((), dtype=torch.float32)
-        source = tx.to(decoded.dtype)
-    encoded = rs_encode_bits(source[None], nsym)[0] if use_ecc else source
-    label = torch.where(ser > 0, detected, encoded) if is_data else encoded
+    of the true word (pilot).
+
+    Three spans tile it: "detect.viterbi" (the detect), "detect.rs_decode"
+    and "detect.label" (SER and label). With `hold`, "detect.label" is
+    entered on it and stays open after the return, so that the caller's
+    use of the label (the block graph's gate, state writes and append)
+    falls within it."""
+    with profiling.span("detect.viterbi"):
+        detected = detect(rx, h)[0]
+    with profiling.span("detect.rs_decode"):
+        decoded = rs_decode_bits(detected[None], nsym)[0][0] if use_ecc else detected[:tx.shape[0]]
+    with contextlib.ExitStack() as own:
+        (own if hold is None else hold).enter_context(profiling.span("detect.label"))
+        if is_data:
+            ser = (decoded != tx).sum().to(torch.float32) * float(np.float32(1.0 / tx.shape[0]))
+            source = decoded
+        else:
+            ser = detected.new_zeros((), dtype=torch.float32)
+            source = tx.to(decoded.dtype)
+        encoded = rs_encode_bits(source[None], nsym)[0] if use_ecc else source
+        label = torch.where(ser > 0, detected, encoded) if is_data else encoded
     return ser, label, detected
 
 
@@ -226,19 +238,21 @@ def make_block_step(cfg: Config, spec, model, ring: bool) -> Callable:
 
     def block(is_data: bool) -> GraphedStep:
         def fn(p, st, rx, tx, h):
-            ser, label, _ = detect_decode_score(detect, rx, tx, h, cfg.n_symbols, cfg.use_ecc,
-                                                is_data)
-            label = label[None].to(st["label"].dtype)
-            gate = ser <= thresh
-            st["gate"].copy_(gate)
-            st["sers"].index_copy_(0, st["block"].reshape(1), ser.reshape(1))
-            st["block"].add_(1)
-            st["n_gated"].add_(gate)
-            st["rx"].copy_(rx)
-            st["label"].copy_(label)
-            append(st["buf_rx"], st["buf_tx"], st["start"], st["n_valid"], rx, label, gate, ring)
+            with contextlib.ExitStack() as label_span:  # "detect.label", to the block's end
+                ser, label, _ = detect_decode_score(detect, rx, tx, h, cfg.n_symbols,
+                                                    cfg.use_ecc, is_data, hold=label_span)
+                label = label[None].to(st["label"].dtype)
+                gate = ser <= thresh
+                st["gate"].copy_(gate)
+                st["sers"].index_copy_(0, st["block"].reshape(1), ser.reshape(1))
+                st["block"].add_(1)
+                st["n_gated"].add_(gate)
+                st["rx"].copy_(rx)
+                st["label"].copy_(label)
+                append(st["buf_rx"], st["buf_tx"], st["start"], st["n_valid"], rx, label, gate,
+                       ring)
 
-        return GraphedStep(fn, "detect", n_state=2)
+        return GraphedStep(fn, "block", n_state=2)
 
     graphed = {is_data: block(is_data) for is_data in (False, True)}
     return lambda is_data, *args: graphed[is_data](*args)
@@ -350,87 +364,109 @@ def run_online(cfg: Config, spec, params, tx_words: torch.Tensor, rx_words: torc
     "adapt" (self-supervision, under the gate) and "meta" (a candidate meta
     slot's adaptation, under do_meta), and around the run's one host read,
     "sync", for timing. On the card a span's host clock measures the
-    enqueue: the device runs behind the host until the read."""
-    n_words, T = rx_words.shape
-    cap, L = cfg.buffer_capacity, cfg.memory_length
-    subframes = cfg.subframes_in_frame
-    trainable = spec.trainable
-    meta = trainable and cfg.online_meta
-    self_sup = trainable and cfg.self_supervised
-    device = rx_words.device
+    enqueue: the device runs behind the host until the read.
 
-    model = copy.deepcopy(params) if trainable else None
-    p = spec.model.param_dict(model) if trainable else {}
-    ring = init_buffer_rx is not None
-    block_step = make_block_step(cfg, spec, model, ring)
-    graphed = []
-    optimizer = opt_state = select = None
-    if meta or self_sup:
-        optimizer = Optimizer(cfg.optimizer_type, cfg.lr, cfg.clip_grad_norm)
-        opt_state = optimizer.init(p)
-        loss_fn = make_loss_fn(spec.score, spec.label_kind, L, spec.subsample_loss, cfg.loss_type)
-    fused = self_sup and uses_fused_adaptation(cfg, spec)
-    if self_sup:
-        n_steps = cfg.self_supervised_iterations
-        chunk = n_steps if fused else chunk_steps(n_steps, spec.model.STEP_NODES)
-        adapt = make_adapt_step(cfg, optimizer, loss_fn, fused, chunk)
-        graphed.append(adapt)
-        if fused and device.type == "cuda":
-            power_table(ADAM_B1, ADAM_B2, device)  # uploaded before a capture
-        if spec.subsample_loss and not fused:
-            select = draws.select_run(n_words, n_steps, T)
-    if meta:
-        if cfg.weights_init not in ("last_frame", "random", "meta_training"):
-            raise ValueError(f"No such weights init: {cfg.weights_init}")
-        maml_loss_fn = make_loss_fn(spec.meta_score, spec.label_kind, L, spec.subsample_loss,
-                                    cfg.loss_type)
-        saved = _snapshot(p)
-        restore = GraphedStep(lambda p, saved, st: when(st["gate"], _restore, p, saved),
-                              "restore", n_state=3)
-        # the run's draws for every candidate meta slot, made now
-        slot_of = {c: i for i, c in enumerate(meta_slots(cfg, n_words))}
-        table = draws.j_hat_table(list(slot_of))
-        if cfg.weights_init == "random":
-            drawn = [_snapshot(spec.model.param_dict(draws.init_params(c))) for c in slot_of]
-            src = _snapshot(p)  # each slot's fresh params are copied in
-        elif cfg.weights_init == "last_frame":
-            src = saved
-        else:  # the meta-trained params, by default the run's first
-            src = _snapshot(p if meta_init_params is None
-                            else spec.model.param_dict(meta_init_params))
-        meta_chunk = chunk_steps(cfg.meta_j_num, spec.model.MAML_NODES)
-        firsts = torch.arange(0, cfg.meta_j_num, meta_chunk, device=device)
-        meta_restore, meta_pairs, meta_save = make_meta_steps(cfg, optimizer, maml_loss_fn,
-                                                              meta_chunk)
-        graphed += [meta_restore, meta_pairs, meta_save]
+    Where a tracer is active (utils/profiling.py) the run is one of its
+    runs: the same spans, a "start" span (the run's draws, snapshots and
+    graphs, up to the first block), the graphed calls' and the block
+    graph's spans within them, and the run's host syncs and uploaded bytes
+    go to it as well."""
+    args = (cfg, spec, params, tx_words, rx_words, h_words, draws, meta_init_params,
+            init_buffer_rx, init_buffer_tx, spans)
+    tracer = profiling._active
+    if tracer is None:
+        return _run_online(*args)
+    with tracer.run():
+        return _run_online(*args)
 
-    # the run state: what the JAX scan carries besides params and optimizer
-    # state, and the per-block results, on the device
-    int0 = lambda: torch.zeros((), dtype=torch.int32, device=device)
-    st = {"buf_rx": rx_words.new_zeros((cap, T)), "buf_tx": rx_words.new_zeros((cap, T)),
-          "start": int0(), "n_valid": int0(), "n_gated": int0(), "pairs": int0(),
-          "loss": torch.zeros((), dtype=torch.float32, device=device),
-          "gate": torch.zeros((), dtype=torch.bool, device=device),
-          "block": torch.zeros((), dtype=torch.int64, device=device),
-          "sers": torch.zeros(n_words, dtype=torch.float32, device=device),
-          "rx": rx_words.new_zeros((1, T)), "label": rx_words.new_zeros((1, T))}
-    if ring:
-        n0 = init_buffer_rx.shape[0]
-        if n0 > cap:
-            raise ValueError(f"init buffer ({n0} words) exceeds buffer_capacity ({cap}); "
-                             "raise Config.buffer_capacity")
-        st["buf_rx"][:n0] = init_buffer_rx
-        st["buf_tx"][:n0] = init_buffer_tx
-        st["n_valid"].fill_(n0)
+
+def _run_online(cfg: Config, spec, params, tx_words: torch.Tensor, rx_words: torch.Tensor,
+                h_words: torch.Tensor, draws: Draws, meta_init_params,
+                init_buffer_rx: Optional[torch.Tensor], init_buffer_tx: Optional[torch.Tensor],
+                spans: Callable[[str], Any]) -> OnlineResult:
+    # the run's set-up: draws, snapshots, graphs and run state
+    with profiling.span("start"):
+        n_words, T = rx_words.shape
+        cap, L = cfg.buffer_capacity, cfg.memory_length
+        subframes = cfg.subframes_in_frame
+        trainable = spec.trainable
+        meta = trainable and cfg.online_meta
+        self_sup = trainable and cfg.self_supervised
+        device = rx_words.device
+
+        model = copy.deepcopy(params) if trainable else None
+        p = spec.model.param_dict(model) if trainable else {}
+        ring = init_buffer_rx is not None
+        block_step = make_block_step(cfg, spec, model, ring)
+        graphed = []
+        optimizer = opt_state = select = None
+        if meta or self_sup:
+            optimizer = Optimizer(cfg.optimizer_type, cfg.lr, cfg.clip_grad_norm)
+            opt_state = optimizer.init(p)
+            loss_fn = make_loss_fn(spec.score, spec.label_kind, L, spec.subsample_loss,
+                                   cfg.loss_type)
+        fused = self_sup and uses_fused_adaptation(cfg, spec)
+        if self_sup:
+            n_steps = cfg.self_supervised_iterations
+            chunk = n_steps if fused else chunk_steps(n_steps, spec.model.STEP_NODES)
+            adapt = make_adapt_step(cfg, optimizer, loss_fn, fused, chunk)
+            graphed.append(adapt)
+            if fused and device.type == "cuda":
+                power_table(ADAM_B1, ADAM_B2, device)  # uploaded before a capture
+            if spec.subsample_loss and not fused:
+                select = draws.select_run(n_words, n_steps, T)
+        if meta:
+            if cfg.weights_init not in ("last_frame", "random", "meta_training"):
+                raise ValueError(f"No such weights init: {cfg.weights_init}")
+            maml_loss_fn = make_loss_fn(spec.meta_score, spec.label_kind, L, spec.subsample_loss,
+                                        cfg.loss_type)
+            saved = _snapshot(p)
+            restore = GraphedStep(lambda p, saved, st: when(st["gate"], _restore, p, saved),
+                                  "restore", n_state=3)
+            # the run's draws for every candidate meta slot, made now
+            slot_of = {c: i for i, c in enumerate(meta_slots(cfg, n_words))}
+            table = draws.j_hat_table(list(slot_of))
+            if cfg.weights_init == "random":
+                drawn = [_snapshot(spec.model.param_dict(draws.init_params(c))) for c in slot_of]
+                src = _snapshot(p)  # each slot's fresh params are copied in
+            elif cfg.weights_init == "last_frame":
+                src = saved
+            else:  # the meta-trained params, by default the run's first
+                src = _snapshot(p if meta_init_params is None
+                                else spec.model.param_dict(meta_init_params))
+            meta_chunk = chunk_steps(cfg.meta_j_num, spec.model.MAML_NODES)
+            firsts = torch.arange(0, cfg.meta_j_num, meta_chunk, device=device)
+            meta_restore, meta_pairs, meta_save = make_meta_steps(cfg, optimizer, maml_loss_fn,
+                                                                  meta_chunk)
+            graphed += [meta_restore, meta_pairs, meta_save]
+
+        # the run state: what the JAX scan carries besides params and
+        # optimizer state, and the per-block results, on the device
+        int0 = lambda: torch.zeros((), dtype=torch.int32, device=device)
+        st = {"buf_rx": rx_words.new_zeros((cap, T)), "buf_tx": rx_words.new_zeros((cap, T)),
+              "start": int0(), "n_valid": int0(), "n_gated": int0(), "pairs": int0(),
+              "loss": torch.zeros((), dtype=torch.float32, device=device),
+              "gate": torch.zeros((), dtype=torch.bool, device=device),
+              "block": torch.zeros((), dtype=torch.int64, device=device),
+              "sers": torch.zeros(n_words, dtype=torch.float32, device=device),
+              "rx": rx_words.new_zeros((1, T)), "label": rx_words.new_zeros((1, T))}
+        if ring:
+            n0 = init_buffer_rx.shape[0]
+            if n0 > cap:
+                raise ValueError(f"init buffer ({n0} words) exceeds buffer_capacity ({cap}); "
+                                 "raise Config.buffer_capacity")
+            st["buf_rx"][:n0] = init_buffer_rx
+            st["buf_tx"][:n0] = init_buffer_tx
+            st["n_valid"].fill_(n0)
 
     for count in range(n_words):
-        with spans("detect"):
+        with profiling.span("detect", spans):
             block_step(count % subframes != 0, p, st, rx_words[count:count + 1], tx_words[count],
                        h_words[count:count + 1])
 
         if meta and count in slot_of:
             s = slot_of[count]
-            with spans("meta"):
+            with profiling.span("meta", spans):
                 if cfg.weights_init == "random":
                     _restore(src, drawn[s])
                 meta_restore(p, opt_state, st, src)
@@ -440,7 +476,7 @@ def run_online(cfg: Config, spec, params, tx_words: torch.Tensor, rx_words: torc
                 meta_save(saved, p, st)
 
         if self_sup:
-            with spans("adapt"):
+            with profiling.span("adapt", spans):
                 if meta:
                     restore(p, saved, st)
                 if fused:
@@ -450,10 +486,10 @@ def run_online(cfg: Config, spec, params, tx_words: torch.Tensor, rx_words: torc
                         adapt(p, opt_state, st, None if select is None
                               else select[count, first:first + chunk])
 
-    with spans("sync"):  # the run's one read: SERs, counts and conditional launches
+    with profiling.span("sync", spans):  # the run's one read: SERs, counts, conditional launches
         hits = [h for g in graphed for h, _ in g.conditional]
         ints = torch.stack([st["n_gated"], st["n_valid"], st["pairs"], *hits]).to(torch.float32)
-        read = torch.cat([st["sers"], ints]).cpu().numpy()
+        read = profiling.host_read(torch.cat([st["sers"], ints])).numpy()
     sers = read[:n_words]
     n_gated, n_valid, pairs, *hits = (int(v) for v in read[n_words:])
     for g in graphed:

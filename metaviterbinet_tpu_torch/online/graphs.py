@@ -42,7 +42,12 @@ What fn returns (tensors or None) is, on a replay, the graph's static
 output, which the next call overwrites: a caller reads it in stream order
 (an eager op on it) before the next call. `GraphedStep.counts[name]` counts
 the calls of each kind over all steps of that name in the process, as the
-kernel wrappers count their launches.
+kernel wrappers count their launches. Where a tracer is active
+(utils/profiling.py) a call is also a span named after the step, with a
+"<name>.warmup" or "<name>.capture" span inside it, the spans that fn
+opens in a capture are stamped at every replay, and the tracer counts
+`when`'s host branches on a card ("host_syncs"); a graph captured with no
+tracer active holds no stamp.
 
 The kernel wrappers (LAUNCH_COUNTED) count a launch in Python when they
 are called. A capture calls them and executes nothing, and a replay calls
@@ -62,6 +67,7 @@ import torch
 
 from metaviterbinet_tpu_torch.kernels import acs, online_sgd
 from metaviterbinet_tpu_torch.train.optim import OptState
+from metaviterbinet_tpu_torch.utils import profiling
 
 WARMUP_STEPS = 2
 KINDS = ("direct", "warmup", "capture", "replay")
@@ -103,6 +109,8 @@ def when(pred: torch.Tensor, fn: Callable, *args) -> None:
     """fn(*args) where the 0-d bool tensor `pred` holds: an IF node of the
     graph a GraphedStep is capturing, else a host branch."""
     if not (pred.is_cuda and torch.cuda.is_current_stream_capturing()):
+        if pred.is_cuda:  # bool() waits for the device
+            profiling.count("host_syncs")
         if bool(pred):
             fn(*args)
         return
@@ -156,6 +164,9 @@ class _Entry:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.out: Any = None
         self.launches: dict[Callable, int] = {}
+        # the buffer of the tracer active at the capture, which the graph's
+        # stamps write at every replay
+        self.stamps: Optional[torch.Tensor] = None
 
 
 class GraphedStep:
@@ -183,6 +194,9 @@ class GraphedStep:
     def _count(self, kind: str) -> None:
         GraphedStep.counts.setdefault(self.name, dict.fromkeys(KINDS, 0))[kind] += 1
 
+    def _span(self, tracer: Optional[profiling.Tracer], part: str):
+        return profiling.NO_SPAN if tracer is None else tracer.span(f"{self.name}.{part}")
+
     def settle(self, hits: list[int]) -> None:
         """Add the launches of the `when` bodies, given `hits`, the values
         of the `conditional` counts read by the caller; and zero them."""
@@ -192,6 +206,15 @@ class GraphedStep:
             count.zero_()
 
     def __call__(self, *args):
+        """The call, and where a tracer is active a span named after the
+        step, its warm-ups and capture spans of their own within it."""
+        tracer = profiling._active
+        if tracer is None:
+            return self._call(args, None)
+        with tracer.span(self.name):
+            return self._call(args, tracer)
+
+    def _call(self, args: tuple, tracer: Optional[profiling.Tracer]):
         global _capturing
         state, inputs = args[:self.n_state], args[self.n_state:]
         tensors = state_tensors(state)
@@ -214,7 +237,7 @@ class GraphedStep:
         if entry.graph is None and entry.warmed < WARMUP_STEPS:
             current = torch.cuda.current_stream(device)
             self._stream.wait_stream(current)
-            with torch.cuda.stream(self._stream):
+            with torch.cuda.stream(self._stream), self._span(tracer, "warmup"):
                 out = self.fn(*state, *entry.static)
             current.wait_stream(self._stream)
             entry.warmed += 1
@@ -225,9 +248,10 @@ class GraphedStep:
             before = [w.launches for w in LAUNCH_COUNTED]
             n_conditional = len(self.conditional)
             _capturing = self
-            with torch.cuda.graph(graph, stream=self._stream):
+            with self._span(tracer, "capture"), torch.cuda.graph(graph, stream=self._stream):
                 entry.out = self.fn(*state, *entry.static)
             _capturing = None
+            entry.stamps = None if tracer is None else tracer.buffer
             for w, n in zip(LAUNCH_COUNTED, before):
                 if w.launches != n:  # counted at the capture, which ran nothing
                     entry.launches[w] = w.launches - n

@@ -40,6 +40,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from metaviterbinet_tpu_torch.utils import profiling
+
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 RMS_DECAY, RMS_EPS = 0.99, 1e-8
 
@@ -90,7 +92,7 @@ class Optimizer:
         """adam_factors() on `device`, uploaded at the first call there
         (Optimizer.init makes it, before any capture)."""
         if device not in self._tables:
-            self._tables[device] = torch.from_numpy(adam_factors()).to(device)
+            self._tables[device] = profiling.upload(torch.from_numpy(adam_factors()), device)
         return self._tables[device]
 
     def init(self, params: dict[str, torch.Tensor], out: Optional[OptState] = None) -> OptState:

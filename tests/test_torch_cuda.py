@@ -938,3 +938,219 @@ def test_duplicate_pairs_leave_the_count_unchanged_on_the_card(gen):
                 assert int(state.count) == int(st["pairs"]) == count, i
         after[captured] = [t.detach().clone() for t in p.values()]
     assert all(torch.equal(a, b) for a, b in zip(after[True], after[False]))
+
+
+# ------------------------------------------- the tracer's stamps on the card
+
+def _device_activities(fn) -> list:
+    """(start ms on the wall clock, name) of every device activity of fn()
+    (kernels, copies, fills) under torch.profiler, in the order they
+    started."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted((e.start_ns() / 1e6, e.name()) for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == torch.autograd.DeviceType.CUDA)
+
+
+def _meta_run_inputs(gen, n):
+    from metaviterbinet_tpu_torch import Config
+    from metaviterbinet_tpu_torch.evaluation.trainer import Trainer
+    from metaviterbinet_tpu_torch.online.engine import Draws
+    cfg = Config(eval_mode="by_word", fading_taps_type=2, val_frames=12, self_supervised=True,
+                 online_meta=True)
+    trainer = Trainer(cfg, "meta_vnet", verbose=False)
+    params = trainer.spec.init(cfg, gen, "cuda")
+    tx, rx = trainer.val_dataset.get(10.0, cfg.gamma)
+    h = trainer.decoder_csi(tx.shape[0])
+    draws = Draws(cfg, trainer.spec, torch.device("cuda"),
+                  torch.Generator(device="cuda").manual_seed(5), torch.Generator().manual_seed(5))
+    return cfg, trainer.spec, params, tx[:n], rx[:n], h[:n], draws
+
+
+def test_tracer_stamps_accumulate_in_a_graph_and_its_if_node(gen):
+    """Spans opened in a GraphedStep's function and in a `when` body inside
+    it (an IF node) stamp at every replay: over the warm-ups and 20
+    replays, made under sync debug mode "error" after the capture, the
+    inner span counts every call and the body span every call whose
+    predicate held, each under the step's own span; the host read only in
+    the warm-ups' `when` (host_syncs)."""
+    from metaviterbinet_tpu_torch.online.graphs import WARMUP_STEPS, GraphedStep, when
+    from metaviterbinet_tpu_torch.utils import profiling
+    from metaviterbinet_tpu_torch.utils.profiling import Tracer
+
+    def body(st):
+        with profiling.span("body"):
+            st["x"].add_(1.0)
+
+    def fn(st, pred):
+        with profiling.span("inner"):
+            st["y"].add_(1.0)
+        when(pred, body, st)
+
+    st = {"x": torch.zeros((), device="cuda"), "y": torch.zeros((), device="cuda")}
+    preds = [i % 3 != 1 for i in range(WARMUP_STEPS + 20)]
+    pred_tensors = [torch.tensor(v, device="cuda") for v in preds]
+    call = GraphedStep(fn, "traced step", n_state=1)
+    GraphedStep.counts.pop("traced step", None)
+    tracer = Tracer()
+    try:
+        with tracer:
+            for i, pred in enumerate(pred_tensors):
+                if i == WARMUP_STEPS + 1:  # after the capture and its replay
+                    torch.cuda.set_sync_debug_mode("error")
+                call(st, pred)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    s = tracer.summary()
+    assert float(st["y"]) == len(preds) and float(st["x"]) == sum(preds)
+    assert s.dropped == 0
+    assert s.by_name["traced step"].count == s.by_name["inner"].count == len(preds)
+    assert s.by_name["body"].count == sum(preds)
+    assert s.by_name["traced step.capture"].count == 1
+    names = [sp.name for sp in s.spans]
+    for sp in s.spans:
+        if sp.name in ("inner", "body"):
+            assert s.spans[sp.parent].name in ("traced step", "traced step.warmup")
+            assert sp.host is None or s.spans[sp.parent].name == "traced step.warmup"
+    assert names.count("traced step.warmup") == WARMUP_STEPS
+    assert GraphedStep.counts["traced step"]["replay"] == len(preds) - WARMUP_STEPS
+    assert s.counters[None]["host_syncs"] == WARMUP_STEPS
+
+
+def test_tracer_clock_agrees_with_the_profiler(gen):
+    """A 50-block meta_vnet run, traced and under torch.profiler: every
+    stamp of the tracer's spans, on the host's clock, lies within 50 us of
+    the profiler's start of a stamp kernel, and every stamp kernel the
+    profiler saw in the run within 50 us of one of the tracer's (matched to
+    the nearest: the profiler has been seen to drop an activity in a few
+    thousand, PERF.md); the run reads the device once."""
+    from metaviterbinet_tpu_torch.online.engine import run_online
+    from metaviterbinet_tpu_torch.utils import profiling
+    from metaviterbinet_tpu_torch.utils.profiling import Tracer
+    cfg, spec, params, tx, rx, h, draws = _meta_run_inputs(gen, 50)
+    tracer = Tracer()
+    results = []
+
+    def traced():
+        with tracer:
+            results.append(run_online(cfg, spec, params, tx, rx, h, draws))
+
+    activities = _device_activities(traced)
+    s = tracer.summary()
+    # the profiler sees the start's last calibrations, the spans' stamps and
+    # the window's end
+    profiled = np.asarray([t for t, name in activities if "stamp_kernel" in name])
+    ours = np.asarray(sorted(t for sp in s.spans for t in sp.device))
+    assert s.dropped == 0 and results[0].host_reads == 1
+    assert len(ours) > 1000 and len(profiled) <= len(ours) + profiling.CALIBRATIONS + 1
+
+    def nearest(a, b):
+        i = np.clip(np.searchsorted(b, a), 1, len(b) - 1)
+        return np.minimum(np.abs(a - b[i - 1]), np.abs(a - b[i]))
+
+    in_run = profiled[(profiled >= ours[0] - 0.05) & (profiled <= ours[-1] + 0.05)]
+    assert float(nearest(ours, profiled).max()) < 0.05
+    assert float(nearest(in_run, ours).max()) < 0.05
+
+
+def test_tracer_accounts_for_a_traced_meta_run(gen):
+    """A 50-block meta_vnet run traced (no profiler): the summary's covered
+    and idle time add up to its window within 1%; the replayed block graph
+    is its three parts within 5% (a warm-up runs them in a "block.warmup"
+    span, a capture runs nothing in its "block.capture"); every block has
+    its spans, and the counts of graphed calls, launches, host syncs and
+    uploads are the card's."""
+    from metaviterbinet_tpu_torch.kernels.acs import viterbi_decode_kernel
+    from metaviterbinet_tpu_torch.online.engine import run_online
+    from metaviterbinet_tpu_torch.online.graphs import WARMUP_STEPS, GraphedStep
+    from metaviterbinet_tpu_torch.utils.profiling import Tracer
+    cfg, spec, params, tx, rx, h, draws = _meta_run_inputs(gen, 50)
+    GraphedStep.counts.pop("block", None)
+    viterbi_decode_kernel.launches = 0
+    with Tracer() as tracer:
+        result = run_online(cfg, spec, params, tx, rx, h, draws)
+    s = tracer.summary()
+    assert s.dropped == 0 and result.host_reads == 1
+    assert s.covered_ms + sum(s.idle_ms.values()) == pytest.approx(s.window_ms, rel=0.01)
+    parts: dict = {}
+    for sp in s.spans:
+        if sp.name.startswith("detect.") and s.spans[sp.parent].name == "block":
+            parts[sp.parent] = parts.get(sp.parent, 0.0) + sp.device[1] - sp.device[0]
+    for sp in s.spans:
+        if sp.name == "block.capture":
+            parts.pop(sp.parent, None)
+    blocks = sum(s.spans[i].device[1] - s.spans[i].device[0] for i in parts)
+    assert len(parts) == 50 - 2 * WARMUP_STEPS - 1  # the data graph's replays
+    assert sum(parts.values()) == pytest.approx(blocks, rel=0.05)
+    assert s.by_name["detect"].count == s.by_name["block"].count == 50
+    assert GraphedStep.counts["block"]["replay"] == 50 - 2 * WARMUP_STEPS  # the capture too
+    assert viterbi_decode_kernel.launches == 50
+    counts = s.counters[1]
+    assert counts["upload_bytes"] > 0 and counts["host_syncs"] > 1
+
+
+# run in a process of its own: after other tests in the same process the
+# profiler has been seen to report a few copies fewer (PERF.md)
+_TRACED_OFF_AND_ON = """
+import json
+from collections import Counter
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from metaviterbinet_tpu_torch import Config
+from metaviterbinet_tpu_torch.evaluation.trainer import Trainer
+from metaviterbinet_tpu_torch.online.engine import run_online
+from metaviterbinet_tpu_torch.utils.profiling import Tracer
+
+cfg = Config(val_frames=3, subframes_in_frame=5, use_ecc=True, n_symbols=2,
+             self_supervised=False, online_meta=False)
+trainer = Trainer(cfg, "vnet", verbose=False)
+params = trainer.spec.init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+tx, rx = trainer.val_dataset.get(10.0, cfg.gamma)
+h = trainer.decoder_csi(tx.shape[0])
+
+
+def activities():
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run_online(cfg, trainer.spec, params, tx, rx, h, trainer.draws)
+        torch.cuda.synchronize()
+    return Counter(e.name() for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA)
+
+
+run_online(cfg, trainer.spec, params, tx, rx, h, trainer.draws)  # tables uploaded once
+off = activities()
+with Tracer() as tracer:
+    on = activities()
+print(json.dumps({"off": off, "on": on, "spans": len(tracer.summary().spans)}))
+"""
+
+
+def test_a_run_traced_off_launches_no_stamp(gen):
+    """A vnet joint run of 15 blocks with no tracer active captures its
+    graphs with no stamp node: it launches no stamp kernel, and every other
+    device activity that the same run has under a tracer, as many times
+    (torch.profiler's names and counts, in a process of its own); the
+    traced run launches two stamps a span."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from collections import Counter
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    out = subprocess.run([sys.executable, "-c", _TRACED_OFF_AND_ON], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    off, on = Counter(got["off"]), Counter(got["on"])
+    stamps = {name for name in on if "stamp_kernel" in name}
+    assert not [name for name in off if "stamp_kernel" in name]
+    assert off == Counter({k: v for k, v in on.items() if k not in stamps})
+    assert sum(on[name] for name in stamps) == 2 * got["spans"]
