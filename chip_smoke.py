@@ -4,7 +4,7 @@
 
 Phases, each of which fails the run on error:
   1. card     print the card's name and power limit (nvidia-smi);
-  2. build    compile the five CUDA kernels, the IF-node helper
+  2. build    compile the six CUDA kernels, the IF-node helper
               (online/graphs.py::when) and the tracer's stamp
               (utils/profiling.py::Tracer) from
               metaviterbinet_tpu_torch/kernels/csrc (one nvcc per source,
@@ -25,7 +25,10 @@ Phases, each of which fails the run on error:
               online Adam) at T = 136 from the same params and moments: 40
               steps, a resumed second call of 40, and the protocol's 200
               steps on nine received words; and two K6 launches from the same
-              inputs, bit-identical;
+              inputs, bit-identical; K7 (fused MAML pairs) on a meta slot's
+              pairs at T = 136: one launch of 10 draws and the slot's 20
+              against its plain version, two launches bit-identical, and its
+              float64 witness against the autograd pairs it replaced;
   4. slice    the aggregated coded-BER eval at the protocol's full width
               (300 words x 136 symbols, RS nsym=2, 4-tap time-decay fading
               channel), each path's launch counts zeroed just before and read
@@ -45,7 +48,9 @@ Phases, each of which fails the run on error:
               miss: meta_vnet in meta mode (meta_train, then a meta slot
               every 5 blocks, decided on the card: the query draws of
               the buffer's fill, the MAML pairs with duplicates masked,
-              each under an IF node; and K6 on every gated block), vnet
+              an iteration's pairs one K7 launch under an IF node, K7's
+              launches 20 a slot that fired; and K6 on every gated
+              block), vnet
               in joint mode
               (train, then detection only), vnet in online mode (the joint
               cell's checkpoint, then 200 graphed self-supervised steps per
@@ -77,7 +82,7 @@ Phases, each of which fails the run on error:
   5b. lstm    the LSTM family (2 x 256 LSTM, window 4), which has no kernel,
               in two processes of its own started after phase 4 and run
               beside phases 5-7 (see start_beside); no path of it may
-              launch one of the five kernels. In one process: the
+              launch one of the six kernels. In one process: the
               aggregated point at 10 dB with seeded random params (cuDNN),
               its logits and eval tail on the card against the CPU, and
               under torch.profiler; lstm joint (Trainer.train on the miss,
@@ -158,7 +163,8 @@ Phases, each of which fails the run on error:
               per step), and K6 with its start powers read from device
               memory at the device count against its plain version (40 and
               a resumed 40 steps), two launches bit-identical and its
-              float64 witness; viterbi_decode_lowlat at 1 x 136 beside K5 on the
+              float64 witness; K7 at one launch of 10 draws x T = 136
+              (with its bound from portbench/counts.py::maml_pair_ops); viterbi_decode_lowlat at 1 x 136 beside K5 on the
               same priors, and chunked_decode_reference (one K5 over 4096
               chains of 288 steps) beside sequential K5 at 128 x 8192;
   8b. bench   `python -m metaviterbinet_tpu_torch bench` in a process of its
@@ -174,6 +180,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import copy
+import functools
 import io
 import json
 import multiprocessing
@@ -194,12 +201,12 @@ from metaviterbinet_tpu_torch import Config, bench, cli, load_config
 from metaviterbinet_tpu_torch.data.dataset import ChannelDataset, generate_words
 from metaviterbinet_tpu_torch.ecc.rs import rs_encode_bits
 from metaviterbinet_tpu_torch.evaluation.trainer import Trainer
-from metaviterbinet_tpu_torch.kernels import acs, online_sgd
+from metaviterbinet_tpu_torch.kernels import acs, maml_pairs, online_sgd
 from metaviterbinet_tpu_torch.models import lstm, va, viterbinet
 from metaviterbinet_tpu_torch.detectors import DETECTORS
 from metaviterbinet_tpu_torch.online import graphs
 from metaviterbinet_tpu_torch.online.engine import (
-    Draws, make_adapt_step, run_online, uses_fused_adaptation)
+    Draws, make_adapt_step, meta_slots, run_online, uses_fused_adaptation, uses_fused_maml)
 from metaviterbinet_tpu_torch.online.graphs import GraphedStep, chunk_steps
 from metaviterbinet_tpu_torch.ops.trellis import calculate_states, viterbi_decode_lowlat
 from metaviterbinet_tpu_torch.parallel import decode as parallel_decode
@@ -212,10 +219,11 @@ from metaviterbinet_tpu_torch.plotters import cache, experiments
 from metaviterbinet_tpu_torch.train.checkpoint import ckpt_path
 from metaviterbinet_tpu_torch.train.losses import make_loss_fn, select_batch
 from metaviterbinet_tpu_torch.train.loop import word_sweep
-from metaviterbinet_tpu_torch.train.meta import make_maml_step
+from metaviterbinet_tpu_torch.train.meta import (
+    each_pair, make_maml_step, maml_pair_step, masked_pairs)
 from metaviterbinet_tpu_torch.train.optim import ADAM_B1, ADAM_B2, ADAM_EPS, Optimizer
 from metaviterbinet_tpu_torch.utils.profiling import Tracer
-from portbench import trace
+from portbench import counts, trace
 
 SEED = 20260
 # H100 SXM published peaks (NVIDIA data sheet, dense): device memory rate,
@@ -296,12 +304,31 @@ K6_WITNESS_MULTIPLE, K6_WITNESS_FLOOR = 16.0, 1e-6
 # b2 off, which is what a kernel with that constant wrong computes
 K6_FAULTS = {"lr 1.0001e-3": {"lr": 1.0001e-3}, "eps 1e-7": {"lr": 1e-3, "eps": 1e-7},
              "b2 0.998": {"lr": 1e-3, "b2": 0.998}}
+# K7 (kernels/maml_pairs.py) on a meta slot's pairs: K7_ITERATIONS
+# iterations of K7_DRAWS query draws (the protocol's meta_train_iterations x
+# meta_j_num, duplicates masked) over a buffer of K7_WORDS words of T = 136,
+# window 1, at the protocol's meta_lr and lr
+K7_WORDS, K7_ITERATIONS, K7_DRAWS, K7_META_LR, K7_LR = 40, 20, 10, 0.1, 1e-3
+# K7 against its plain version at f32: max |dparam| after 10 pairs (one
+# launch) and after a slot's 200 (20 launches); Adam amplifies the products'
+# other summation order as K6's 200 steps do (K6_LIMITS)
+K7_LIMITS = {"10 pairs": 1e-5, "200 pairs": 1e-4}
+# K7's float64 witness (tests/test_torch_cuda.py, tests/test_torch_maml_kernel.py):
+# over a slot's pairs from each seed's params, buffer and draws, the
+# kernel's distance from a float64 run of its plain version's arithmetic is
+# held within K7_WITNESS_MULTIPLE times the distance of the autograd pair it
+# replaced (train/meta.py::maml_pair_step, f32) plus K7_WITNESS_FLOOR. A run
+# with the Hessian term left out or the duplicate draws unmasked (K7_FAULTS)
+# in its place must fail it.
+K7_WITNESS_SEEDS = (0, 1, 2)
+K7_WITNESS_MULTIPLE, K7_WITNESS_FLOOR = 2.0, 1e-6
+K7_FAULTS = {"no Hessian term": {"second_order": False}, "duplicates unmasked": {"unmasked": True}}
 CARD_CPU_BLOCKS = 25
 # card against CPU over the first 25 meta-mode blocks: each block's SER
 # within two of its 120 bits, the mean over the data blocks within 2e-3
 CARD_CPU_BLOCK_TOL, CARD_CPU_MEAN_TOL = 2.0 / 120, 2e-3
 KERNELS = ("fused_viterbinet_detect", "fused_va_detect", "fused_viterbinet_detect_chunked",
-           "viterbi_decode_kernel", "online_adapt_viterbinet")
+           "viterbi_decode_kernel", "online_adapt_viterbinet", "maml_pairs_viterbinet")
 OVERLAP = 32  # Config.decode_overlap
 # the anchors' bands (tests/test_parity_anchor.py:22-30, :65-84)
 UNCODED_VA_TOL, COST2100_VA_TOL = 0.006, 0.005
@@ -327,7 +354,8 @@ def card_line() -> str:
 
 
 def wrapper(name: str):
-    return getattr(online_sgd if name == "online_adapt_viterbinet" else acs, name)
+    module = {"online_adapt_viterbinet": online_sgd, "maml_pairs_viterbinet": maml_pairs}
+    return getattr(module.get(name, acs), name)
 
 
 def zero_launches() -> None:
@@ -605,6 +633,93 @@ def witness_holds(d: dict) -> bool:
     return d["kernel_f64"] <= K6_WITNESS_MULTIPLE * d["plain_f64"] + K6_WITNESS_FLOOR
 
 
+def k7_slot(seed: int, device: str = "cuda"):
+    """A meta slot's K7 input made on the CPU from `seed`: the port's
+    init_params, a buffer of K7_WORDS words (random bits as BPSK in N(0,
+    0.5^2) noise) and K7_ITERATIONS rows of K7_DRAWS query draws in [1,
+    K7_WORDS), with duplicates; moved to `device`. Returns (params, rx, tx,
+    draws)."""
+    g = torch.Generator().manual_seed(seed)
+    model = viterbinet.init_params(16, g, device="cpu")
+    tx = torch.randint(0, 2, (K7_WORDS, T_PROTO), generator=g).float()
+    rx = 1.0 - 2.0 * tx + 0.5 * torch.randn((K7_WORDS, T_PROTO), generator=g)
+    draws = torch.randint(1, K7_WORDS, (K7_ITERATIONS, K7_DRAWS), generator=g)
+    params = {k: v.detach().to(device) for k, v in viterbinet.param_dict(model).items()}
+    return params, rx.to(device), tx.to(device), draws.to(device)
+
+
+def k7_pairs(fn, opt: Optimizer, second_order: bool = True, unmasked: bool = False):
+    """train/meta.py::masked_pairs' `pairs` through fn (K7's wrapper or its
+    plain version), as the engine's fused path calls it; with `unmasked`,
+    every pair taken, duplicates too."""
+    def pairs(p, state, st, take, s_rx, s_tx, q_rx, q_tx):
+        n = take.shape[0]
+
+        def labels(tx):
+            return calculate_states(4, tx.reshape(-1, tx.shape[-1])).reshape(n, -1)
+
+        fn(p, state, opt.table(take.device), s_rx.reshape(n, -1), labels(s_tx),
+           q_rx.reshape(n, -1), labels(q_tx), torch.ones_like(take) if unmasked else take,
+           st["loss"], K7_META_LR, opt.lr, second_order)
+    return pairs
+
+
+def k7_slot_run(params: dict, rx, tx, draws, pairs: str, dtype=torch.float32,
+                iterations: int = K7_ITERATIONS, fault: dict | None = None) -> tuple:
+    """A slot's pairs from params and zero moments, K7_DRAWS a call of
+    masked_pairs, through `pairs`: "kernel" (K7's wrapper: the kernel on the
+    card, its plain version on the CPU), "plain" or "autograd" (each_pair of
+    maml_pair_step, the path K7 replaced); with `fault`, the plain version
+    with those arguments. Returns (params, opt state, st)."""
+    opt = Optimizer("Adam", K7_LR)
+    p = {k: v.detach().to(dtype=dtype, copy=True) for k, v in params.items()}
+    state = opt.init(p)
+    if pairs == "autograd":
+        loss_fn = make_loss_fn(viterbinet.logits, "states", 4, False)
+        run = each_pair(maml_pair_step(loss_fn, opt, K7_META_LR, True))
+        for t in p.values():
+            t.requires_grad_(True)
+    elif fault is not None:
+        run = k7_pairs(maml_pairs.maml_pairs_viterbinet_plain, opt, **fault)
+    else:
+        run = k7_pairs(maml_pairs.maml_pairs_viterbinet if pairs == "kernel"
+                       else maml_pairs.maml_pairs_viterbinet_plain, opt)
+    st = {"rx": rx.to(dtype), "tx": tx, "loss": torch.zeros((), dtype=dtype, device=rx.device),
+          "pairs": torch.zeros((), dtype=torch.int32, device=rx.device)}
+
+    def rows(st, j):
+        return st["rx"][j[:, None] - 1], st["tx"][j[:, None] - 1], st["rx"][j[:, None]], \
+            st["tx"][j[:, None]]
+
+    first = torch.zeros(1, dtype=torch.int64, device=rx.device)
+    for d in draws[:iterations]:
+        masked_pairs(run, rows, p, state, st, d, first, K7_DRAWS)
+    return {k: v.detach() for k, v in p.items()}, state, st
+
+
+def k7_witness(params: dict, rx, tx, draws, fault: dict | None = None,
+               iterations: int = K7_ITERATIONS) -> dict:
+    """K7, the autograd pairs in f32 and a float64 run of K7's plain
+    version over a slot's pairs (its first `iterations`) from the same
+    params and zero moments; returns max |dparam| between each pair of
+    them. With `fault` (an entry of K7_FAULTS), the f32 plain version with
+    those arguments stands where K7 stood."""
+    runs = {"kernel": k7_slot_run(params, rx, tx, draws, "kernel", iterations=iterations,
+                                  fault=fault)[0],
+            "autograd": k7_slot_run(params, rx, tx, draws, "autograd", iterations=iterations)[0],
+            "f64": k7_slot_run(params, rx, tx, draws, "plain", torch.float64, iterations)[0]}
+
+    def dist(a, b):
+        return max(float((runs[a][k].double() - runs[b][k].double()).abs().max()) for k in params)
+
+    return {"kernel_f64": dist("kernel", "f64"), "autograd_f64": dist("autograd", "f64"),
+            "kernel_autograd": dist("kernel", "autograd")}
+
+
+def k7_witness_holds(d: dict) -> bool:
+    return d["kernel_f64"] <= K7_WITNESS_MULTIPLE * d["autograd_f64"] + K7_WITNESS_FLOOR
+
+
 def _copy_state(params: dict, state):
     p = {k: v.clone() for k, v in params.items()}
     s = copy.copy(state)
@@ -809,7 +924,49 @@ def phase_kernels(model: viterbinet.ViterbiNet, trained: viterbinet.ViterbiNet,
     print(f"online_adapt_viterbinet drift: {drift}")
     checks[("online_adapt_viterbinet", 1, T_PROTO)] = {"max_abs_err": errs["200 steps"],
                                                         "by_check": errs, "drift": drift}
+    checks[("maml_pairs_viterbinet", K7_DRAWS, T_PROTO)] = k7_checks()
     return checks
+
+
+def k7_checks() -> dict:
+    """K7 against its plain version at f32 over one launch of a slot's
+    first K7_DRAWS pairs and over the slot's K7_ITERATIONS launches (the
+    counts, pair counts and summed losses equal too), two launches from the
+    same inputs bit-identical, and the float64 witness on every
+    K7_WITNESS_SEEDS slot."""
+    inputs = k7_slot(K7_WITNESS_SEEDS[0])
+    errs = {}
+    for label, iterations in (("10 pairs", 1), ("200 pairs", K7_ITERATIONS)):
+        (pk, sk, stk), (pp, sp, stp) = (k7_slot_run(*inputs, path, iterations=iterations)
+                                        for path in ("kernel", "plain"))
+        errs[label] = _max_diff(pk, pp)
+        counts = [int(sk.count), int(sp.count), int(stk["pairs"]), int(stp["pairs"])]
+        loss_gap = abs(float(stk["loss"]) - float(stp["loss"])) / abs(float(stp["loss"]))
+        print(f"maml_pairs_viterbinet T={T_PROTO}, {label}: max |dparam| {errs[label]:.3e} vs the "
+              f"plain version (limit {K7_LIMITS[label]:g}); Adam counts and pair counts "
+              f"{counts}; summed query losses {float(stk['loss']):.6f} against "
+              f"{float(stp['loss']):.6f} (relative gap {loss_gap:.2e})")
+        if not errs[label] <= K7_LIMITS[label] or len(set(counts)) != 1 or not loss_gap < 1e-5:
+            fail(f"maml_pairs_viterbinet {label}: against its plain version {errs[label]}, "
+                 f"counts {counts}, loss gap {loss_gap}")
+    # two launches from the same inputs give the same bits: the cluster sums
+    # its partial gradients in a fixed order, with no atomics
+    a, b = (k7_slot_run(*inputs, "kernel", iterations=1) for _ in range(2))
+    same = all(torch.equal(x[k], y[k]) for x, y in ((a[0], b[0]), (a[1].mu, b[1].mu),
+                                                     (a[1].nu, b[1].nu)) for k in x)
+    print(f"maml_pairs_viterbinet T={T_PROTO}: two launches from the same inputs bit-identical "
+          f"{same}")
+    if not same:
+        fail("maml_pairs_viterbinet: two launches from the same inputs differ")
+    witness = {}
+    for seed in K7_WITNESS_SEEDS:
+        witness[seed] = d = k7_witness(*k7_slot(seed))
+        print(f"maml_pairs_viterbinet float64 witness, seed {seed}, a slot's "
+              f"{K7_ITERATIONS * K7_DRAWS} draws: {d} (held: kernel_f64 <= "
+              f"{K7_WITNESS_MULTIPLE:g} x autograd_f64 + {K7_WITNESS_FLOOR:g})")
+        if not k7_witness_holds(d):
+            fail(f"maml_pairs_viterbinet: float64 witness on seed {seed}: {d}")
+    return {"max_abs_err": errs["10 pairs"], "by_check": errs, "witness": witness}
 
 
 def phase_slice(model: viterbinet.ViterbiNet, trained: viterbinet.ViterbiNet) -> dict:
@@ -1078,6 +1235,12 @@ def run_by_word(name: str, mode: str, weights_dir: str, band: tuple) -> dict:
     elif trainer.spec.model is viterbinet:
         want["viterbi_decode_kernel"] = cfg.n_words("val")
         want["online_adapt_viterbinet"] = result.n_gated if mode == "meta" else 0
+        if mode == "meta":  # K7: one launch an iteration of every slot that fired
+            fired = meta_slots_fired(cfg, sers)
+            want["maml_pairs_viterbinet"] = cfg.meta_train_iterations * fired
+            print(f"{name} {mode} mode: {fired} meta slots fired, "
+                  f"{launches['maml_pairs_viterbinet']} K7 launches "
+                  f"(expected {want['maml_pairs_viterbinet']}), {result.steps['maml']} MAML pairs")
         if miss:  # one eval per training minibatch
             want_train["fused_viterbinet_detect"] = cfg.train_minibatch_num
         if mode == "meta" and result.n_gated == 0:
@@ -1092,6 +1255,16 @@ def run_by_word(name: str, mode: str, weights_dir: str, band: tuple) -> dict:
             "parts": parts, "launches": launches,
             "train_launches": train_launches, "n_buffer": result.n_buffer,
             "n_gated": result.n_gated, "steps": steps, "train_steps": train_steps}
+
+
+def meta_slots_fired(cfg: Config, sers: np.ndarray) -> int:
+    """The candidate meta slots of a run from an empty buffer at which its
+    fill exceeded 2, from the run's SERs: a block is buffered where its SER
+    (0 at pilots) passes the gate."""
+    if not cfg.buffer_empty:
+        fail("meta_slots_fired: the run started from a full buffer")
+    gated = np.cumsum(np.asarray(sers) <= np.float32(cfg.ser_thresh))
+    return sum(int(min(gated[c], cfg.buffer_capacity) > 2) for c in meta_slots(cfg, len(sers)))
 
 
 def profiled_blocks(cell: str, name: str, cfg: Config, weights_dir: str | None = None,
@@ -1661,7 +1834,8 @@ def phase_sweep(root: str, card: str) -> dict:
                 fail(f"sweep {name}: mean data BER {mean_ber} outside {ref} +- {tol}")
             # K1 once per train-on-miss minibatch (the two ViterbiNet
             # curves share one checkpoint), K5 or K2 per block, K6 per gated
-            # meta block; none for the LSTM family
+            # meta block, K7 per iteration of a meta slot that fired; none
+            # for the LSTM family
             want = dict.fromkeys(KERNELS, 0)
             if spec.detector == "va":
                 want["fused_va_detect"] = cfg.n_words("val")
@@ -1671,6 +1845,8 @@ def phase_sweep(root: str, card: str) -> dict:
                     want["fused_viterbinet_detect"] = cfg.train_minibatch_num
                 if spec.online_meta:
                     want["online_adapt_viterbinet"] = n_gated
+                    want["maml_pairs_viterbinet"] = (trainer.cfg.meta_train_iterations
+                                                     * meta_slots_fired(trainer.cfg, ser))
                     if n_gated == 0:
                         fail(f"sweep {name}: no block was gated, so K6 never ran")
             if launches != want:
@@ -1742,7 +1918,7 @@ def start_beside(pool: concurrent.futures.Executor, weights_dir: str, card: str)
     """Phases 5b and 5c in three worker processes: the LSTM family on the
     card at full width (the aggregated point and the lstm joint and lstm
     online cells in one, meta_lstm in another; no path of it may launch one
-    of the five kernels) and the sweep (phase_sweep) in the third. Each
+    of the six kernels) and the sweep (phase_sweep) in the third. Each
     process counts its own launches. Each is a host-bound loop of eager
     launches on one core that leaves the card idle most of the time; one
     after another, after phase 5, the LSTM's took 811 s of a 1028 s run on
@@ -1995,15 +2171,20 @@ def phase_bf16(model: viterbinet.ViterbiNet) -> dict:
     t0 = time.perf_counter()
     loss = float(word_sweep(trainer.loss_fn, optimizer, params, opt_state, trx, ttx, select))
     sweep_s = time.perf_counter() - t0
-    fused = {dtype: uses_fused_adaptation(cfg.replace(dtype=dtype), Trainer(
-        cfg.replace(dtype=dtype), "meta_vnet", params=model, verbose=False).spec)
-        for dtype in ("float32", "bfloat16")}
+    specs = {dtype: Trainer(cfg.replace(dtype=dtype), "meta_vnet", params=model,
+                            verbose=False).spec for dtype in ("float32", "bfloat16")}
+    fused = {dtype: uses_fused_adaptation(cfg.replace(dtype=dtype), spec)
+             for dtype, spec in specs.items()}
+    fused_maml = {dtype: uses_fused_maml(cfg.replace(dtype=dtype), spec)
+                  for dtype, spec in specs.items()}
     print(f"bf16 word sweep over {ttx.shape[0]} words: loss {loss:.4f} ({sweep_s:.2f} s); "
-          f"uses_fused_adaptation for meta_vnet: {fused}")
+          f"uses_fused_adaptation for meta_vnet: {fused}; uses_fused_maml: {fused_maml}")
     if not np.isfinite(loss) or not all(bool(torch.isfinite(p).all()) for p in params.values()):
         fail(f"bf16 word sweep: loss {loss} or params not finite")
     if fused != {"float32": True, "bfloat16": False}:
         fail(f"bf16: K6 must not run the bf16 self-supervised step: {fused}")
+    if fused_maml != {"float32": True, "bfloat16": False}:
+        fail(f"bf16: K7 must not run the bf16 MAML pairs: {fused_maml}")
 
     # the LSTM in bf16: the unrolled forward, every op rounded to bf16, on
     # the first 50 words, through its spec's score
@@ -2301,6 +2482,38 @@ def phase_width(model: viterbinet.ViterbiNet, gen: torch.Generator, card: str) -
                                                             ADAM_EPS),
            bound, per_graph=2, plain_per_graph=1)
     times[("online_adapt_viterbinet", 1)]["checked"] = k6_new_abi(card)
+    # K7 at one launch of a slot's 10 draws (its duplicates masked), T = 136
+    k7_params, k7_rx, k7_tx, k7_draws = k7_slot(K7_WITNESS_SEEDS[0])
+    k7 = {}
+    for path in ("kernel", "plain"):
+        fn = maml_pairs.maml_pairs_viterbinet if path == "kernel" else \
+            maml_pairs.maml_pairs_viterbinet_plain
+        p = {k: v.clone() for k, v in k7_params.items()}
+        opt = Optimizer("Adam", K7_LR)
+        state = opt.init(p)
+        st = {"rx": k7_rx, "tx": k7_tx, "loss": torch.zeros((), device="cuda"),
+              "pairs": torch.zeros((), dtype=torch.int32, device="cuda")}
+        first = torch.zeros(1, dtype=torch.int64, device="cuda")
+        run = k7_pairs(fn, opt)
+        k7[path] = functools.partial(
+            masked_pairs, run, lambda st, j: (st["rx"][j[:, None] - 1], st["tx"][j[:, None] - 1],
+                                              st["rx"][j[:, None]], st["tx"][j[:, None]]),
+            p, state, st, k7_draws[0], first, K7_DRAWS)
+    # the plain version reads the mask to the host, so no graph holds it:
+    # timed eagerly only
+    k7_pairs_taken = len(set(k7_draws[0].tolist()))
+    k7_bound = 1e3 * k7_pairs_taken * counts.maml_pair_ops(T_PROTO, 16, 1) / F32_FLOP_PER_S
+    row = times[("maml_pairs_viterbinet", K7_DRAWS)] = {
+        "ms": graph_ms(k7["kernel"], per_graph=2), "call_ms": call_ms(k7["kernel"]),
+        "plain_ms": None, "plain_call_ms": call_ms(k7["plain"], reps=5, warmup=1),
+        "bound_ms": k7_bound, "bound_by": "operations", "pairs_taken": k7_pairs_taken}
+    print(f"width maml_pairs_viterbinet {K7_DRAWS} draws x T={T_PROTO}: kernel {row['ms']:.5f} "
+          f"ms on the device, {row['call_ms']:.5f} ms per eager call (with the sort, mask, "
+          f"gather and labels); plain {row['plain_call_ms']:.4f} ms per eager call; "
+          f"{k7_pairs_taken} draws taken, {counts.maml_pair_ops(T_PROTO, 16, 1):.4e} f32 "
+          f"operations a pair: bound {k7_bound:.5f} ms at the card's f32 rate, "
+          f"{k7_bound * N_SMS / maml_pairs.CLUSTER_SIZE:.4f} ms at its cluster's share; "
+          f"{1e3 * row['ms'] / k7_pairs_taken:.3f} us a pair on the device [{card}]")
     cluster = online_sgd.CLUSTER_SIZE
     k6 = times[("online_adapt_viterbinet", 1)]
     print(f"online_adapt_viterbinet: {adapt_ops(T_PROTO, 16, K6_ITERS):.4e} f32 operations for "
@@ -2341,7 +2554,8 @@ def k6_new_abi(card: str) -> dict:
     return dict(out, two_launches_equal=same, counts=counts, witness=witness)
 
 
-REPLACES = {"fused_va_detect": "metaviterbinet_tpu/kernels/acs.py:409",
+REPLACES = {"maml_pairs_viterbinet": "none (the JAX package's pair is jax.grad under lax.cond)",
+            "fused_va_detect": "metaviterbinet_tpu/kernels/acs.py:409",
             "fused_viterbinet_detect": "metaviterbinet_tpu/kernels/acs.py:262",
             "fused_viterbinet_detect_chunked": "metaviterbinet_tpu/kernels/acs.py:306",
             "viterbi_decode_kernel": "metaviterbinet_tpu/kernels/acs.py:451",
@@ -2351,7 +2565,8 @@ SOURCES = {"fused_va_detect": "metaviterbinet_tpu_torch/kernels/csrc/va_detect.c
            "fused_viterbinet_detect_chunked":
                "metaviterbinet_tpu_torch/kernels/csrc/viterbinet_detect_chunked.cu",
            "viterbi_decode_kernel": "metaviterbinet_tpu_torch/kernels/csrc/viterbi_decode.cu",
-           "online_adapt_viterbinet": "metaviterbinet_tpu_torch/kernels/csrc/online_adapt.cu"}
+           "online_adapt_viterbinet": "metaviterbinet_tpu_torch/kernels/csrc/online_adapt.cu",
+           "maml_pairs_viterbinet": "metaviterbinet_tpu_torch/kernels/csrc/maml_pairs.cu"}
 
 
 def kernel_rows(checks: dict, sl: dict, online: dict, sweep: dict, times: dict,
@@ -2438,6 +2653,19 @@ def kernel_rows(checks: dict, sl: dict, online: dict, sweep: dict, times: dict,
         "checked": checks[(name, 1, T_PROTO)]["by_check"],
         "checked_device_powers": row["checked"],
         "drift": checks[(name, 1, T_PROTO)]["drift"],
+    })
+    name = "maml_pairs_viterbinet"
+    row = times[(name, K7_DRAWS)]
+    rows.append({
+        "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+        "launches": meta_launches[name],
+        "max_abs_err": checks[(name, K7_DRAWS, T_PROTO)]["max_abs_err"],
+        "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": None, "shape": [K7_DRAWS, T_PROTO],
+        "pairs_taken": row["pairs_taken"], "call_ms": row["call_ms"],
+        "plain_call_ms": row["plain_call_ms"], "cluster_size": maml_pairs.CLUSTER_SIZE,
+        "checked": checks[(name, K7_DRAWS, T_PROTO)]["by_check"],
+        "witness": checks[(name, K7_DRAWS, T_PROTO)]["witness"],
     })
     for row in rows:
         row["launches_sweep"] = {curve: sweep[curve]["launches"][row["name"]]

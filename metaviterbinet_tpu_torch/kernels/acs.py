@@ -13,7 +13,8 @@ Four hand-written CUDA kernels, one per source in csrc/:
 K1, K2 and K4 are each a prior producer and a chain consumer in one block
 (csrc/prior_ring.cuh); `chain_geometry` sizes K1's and K2's blocks and
 `chunked_geometry` K4's from W and the card's SM count. Each source in
-csrc/ (these four, kernels/online_sgd.py's, online/graphs.py's IF node and
+csrc/ (these four, kernels/online_sgd.py's, kernels/maml_pairs.py's,
+online/graphs.py's IF node and
 utils/profiling.py's stamp) is compiled by nvcc for
 sm_90a into a shared library with a plain C interface, at the first CUDA
 call (or all together by `build_kernels`), into kernels/_build/, and
@@ -58,6 +59,7 @@ _SIGNATURES = {
     "viterbinet_detect_chunked": (_PTR,) * 8 + (_INT,) * 9 + (_PTR,),
     "viterbi_decode": (_PTR, _PTR, _INT, _INT, _INT, _PTR),
     "online_adapt": (_PTR,) * 20 + (_INT,) * 3 + (_F32,) * 7 + (_PTR,) * 2,
+    "maml_pairs": (_PTR,) * 26 + (_INT,) * 6 + (_F32,) * 7 + (_PTR,),  # kernels/maml_pairs.py
     "if_node": (_INT, _PTR, _PTR, _PTR),  # online/graphs.py::when's conditional nodes
     "stamp": (_PTR, ctypes.c_longlong, ctypes.c_longlong, _INT, _PTR),  # utils/profiling.py
 }

@@ -53,10 +53,14 @@ captured once per run and replayed once per block:
     the meta_train_iterations, the query draws of the fill's bound
     `max(n_valid - 2, 1)` gathered on the device from the slot's table,
     sorted with their duplicates masked, and the MAML pair steps (train/
-    meta.py) in graphs of `chunk_steps(meta_j_num, MAML_NODES)` pairs, pair
-    i under `when(do_meta & fresh[i])` with its support and query rows
-    gathered from the buffer by device index arithmetic; then the saved
-    params set to the adapted ones under `when(do_meta)`;
+    meta.py) with their support and query rows gathered from the buffer by
+    device index arithmetic: for ViterbiNet's f32 meta loss under Adam
+    (`uses_fused_maml`) one graph of each iteration's meta_j_num pairs,
+    one launch of the fused kernel (kernels/maml_pairs.py) under
+    `when(do_meta)` that skips the duplicates itself; else graphs of
+    `chunk_steps(meta_j_num, MAML_NODES)` autograd pairs, pair i under
+    `when(do_meta & fresh[i])`; then the saved params set to the adapted
+    ones under `when(do_meta)`;
   - the self-supervised loop, the JAX engine's `sgd_steps` under
     `lax.cond(gate)`: its `self_supervised_iterations` steps (loss,
     gradient, optimizer update) as graphs of `chunk_steps` steps back to
@@ -73,8 +77,11 @@ subsampling) with Adam and no clipping, in f32, is instead ONE launch of
 the fused kernel (kernels/online_sgd.py) per block under the gate's IF
 node, which reads its start powers from the device count; any other loss,
 optimizer or compute dtype, and the LSTM family's bit labels, runs the
-autograd steps (the LSTM's through its cuDNN forward). The MAML step goes
-through the spec's `meta_score`.
+autograd steps (the LSTM's through its cuDNN forward). Likewise a meta
+iteration's MAML pairs for that loss in f32 are one launch of the fused
+kernel (kernels/maml_pairs.py) under the slot's IF node
+(`uses_fused_maml`); any other MAML step goes through autograd on the
+spec's `meta_score`.
 """
 from __future__ import annotations
 
@@ -88,12 +95,14 @@ import torch
 
 from metaviterbinet_tpu_torch.config import Config
 from metaviterbinet_tpu_torch.ecc.rs import rs_decode_bits, rs_encode_bits
+from metaviterbinet_tpu_torch.kernels.maml_pairs import maml_pairs_viterbinet
 from metaviterbinet_tpu_torch.kernels.online_sgd import online_adapt_viterbinet, power_table
+from metaviterbinet_tpu_torch.models import viterbinet
 from metaviterbinet_tpu_torch.online.graphs import GraphedStep, chunk_steps, when
 from metaviterbinet_tpu_torch.ops.trellis import calculate_states
 from metaviterbinet_tpu_torch.train.loop import sgd_step
 from metaviterbinet_tpu_torch.train.losses import make_loss_fn
-from metaviterbinet_tpu_torch.train.meta import maml_pair_step, masked_pairs
+from metaviterbinet_tpu_torch.train.meta import each_pair, maml_pair_step, masked_pairs
 from metaviterbinet_tpu_torch.train.optim import ADAM_B1, ADAM_B2, ADAM_EPS, Optimizer
 from metaviterbinet_tpu_torch.utils import profiling
 
@@ -283,8 +292,8 @@ def make_adapt_step(cfg: Config, optimizer: Optimizer, loss_fn: Optional[Callabl
                        "self_supervised", n_state=3)
 
 
-def make_meta_steps(cfg: Config, optimizer: Optimizer, loss_fn: Callable,
-                    chunk: int) -> tuple[GraphedStep, GraphedStep, GraphedStep]:
+def make_meta_steps(cfg: Config, optimizer: Optimizer, loss_fn: Callable, chunk: int,
+                    fused: bool = False) -> tuple[GraphedStep, GraphedStep, GraphedStep]:
     """The JAX engine's `run_meta` under `lax.cond(do_meta)`, `do_meta =
     n_valid > 2` read from the run state `st` on the device, as three
     graphed calls:
@@ -293,12 +302,13 @@ def make_meta_steps(cfg: Config, optimizer: Optimizer, loss_fn: Callable,
       - pairs(p, opt_state, st, table [n_bounds, meta_j_num], first [1]):
         `chunk` pairs from `first` of one meta iteration (its `meta_adapt`),
         the query draws the table's row at the fill's bound `max(n_valid -
-        2, 1)`, each pair under `when(do_meta & fresh)` (masked_pairs) on
-        the buffer's rows;
+        2, 1)`, the pairs taken where `do_meta & fresh` holds
+        (masked_pairs) on the buffer's rows: with `fused`, the chunk as one
+        launch of the fused kernel under `when(do_meta)` (loss_fn unused),
+        else each pair under `when(do_meta & fresh)` (each_pair);
       - save(saved, p, st): saved <- p."""
-    cap, w = cfg.buffer_capacity, cfg.window_size
+    cap, w, L = cfg.buffer_capacity, cfg.window_size, cfg.memory_length
     reset = cfg.weights_init == "random"
-    pair_step = maml_pair_step(loss_fn, optimizer, cfg.meta_lr, cfg.MAML)
 
     def do_meta(st):
         return st["n_valid"] > 2
@@ -311,6 +321,19 @@ def make_meta_steps(cfg: Config, optimizer: Optimizer, loss_fn: Callable,
         support, query = (st["start"] + logical) % cap, (st["start"] + j[:, None]) % cap
         return st["buf_rx"][support], st["buf_tx"][support], st["buf_rx"][query], st["buf_tx"][query]
 
+    def labels(tx):
+        # [chunk, rows, T] words -> [chunk, rows * T] trellis states, word by word
+        return calculate_states(L, tx.reshape(-1, tx.shape[-1])).reshape(tx.shape[0], -1)
+
+    def fused_pairs(p, opt_state, st, take, s_rx, s_tx, q_rx, q_tx):
+        n = take.shape[0]
+        when(do_meta(st), maml_pairs_viterbinet, p, opt_state, optimizer.table(take.device),
+             s_rx.reshape(n, -1), labels(s_tx), q_rx.reshape(n, -1), labels(q_tx), take,
+             st["loss"], cfg.meta_lr, optimizer.lr, cfg.MAML)
+
+    chunk_pairs = fused_pairs if fused else each_pair(
+        maml_pair_step(loss_fn, optimizer, cfg.meta_lr, cfg.MAML))
+
     def init(p, opt_state, src):
         _restore(p, src)
         if reset:
@@ -319,7 +342,7 @@ def make_meta_steps(cfg: Config, optimizer: Optimizer, loss_fn: Callable,
     def pairs(p, opt_state, st, table, first):
         bound = torch.clamp(st["n_valid"] - 2, min=1)
         j_hats = table.index_select(0, (bound - 1).reshape(1).long())[0]
-        masked_pairs(pair_step, rows, p, opt_state, st, j_hats, first, chunk, do_meta(st))
+        masked_pairs(chunk_pairs, rows, p, opt_state, st, j_hats, first, chunk, do_meta(st))
 
     return (GraphedStep(lambda p, o, st, src: when(do_meta(st), init, p, o, src), "meta_restore",
                         n_state=4),
@@ -347,6 +370,19 @@ def uses_fused_adaptation(cfg: Config, spec) -> bool:
     return (spec.trainable and spec.label_kind == "states" and not spec.subsample_loss
             and cfg.loss_type == "CrossEntropy" and cfg.optimizer_type == "Adam"
             and not cfg.clip_grad_norm > 0 and cfg.dtype == "float32")
+
+
+def uses_fused_maml(cfg: Config, spec) -> bool:
+    """Whether a meta slot's pairs are launches of the fused kernel
+    (kernels/maml_pairs.py): ViterbiNet's meta loss (CE over states on all
+    symbols through its f32 forward, `viterbinet.logits`) under Adam,
+    unclipped, in f32. The LSTM family's loss runs through its unrolled
+    recurrence, and under Config.dtype='bfloat16' ViterbiNet's through the
+    bf16 forward, as the JAX engine's is: autograd pairs."""
+    return (spec.meta_score is viterbinet.logits and spec.label_kind == "states"
+            and not spec.subsample_loss and cfg.loss_type == "CrossEntropy"
+            and cfg.optimizer_type == "Adam" and not cfg.clip_grad_norm > 0
+            and cfg.dtype == "float32")
 
 
 def run_online(cfg: Config, spec, params, tx_words: torch.Tensor, rx_words: torch.Tensor,
@@ -434,10 +470,12 @@ def _run_online(cfg: Config, spec, params, tx_words: torch.Tensor, rx_words: tor
             else:  # the meta-trained params, by default the run's first
                 src = _snapshot(p if meta_init_params is None
                                 else spec.model.param_dict(meta_init_params))
-            meta_chunk = chunk_steps(cfg.meta_j_num, spec.model.MAML_NODES)
+            fused_maml = uses_fused_maml(cfg, spec)
+            meta_chunk = cfg.meta_j_num if fused_maml else chunk_steps(cfg.meta_j_num,
+                                                                       spec.model.MAML_NODES)
             firsts = torch.arange(0, cfg.meta_j_num, meta_chunk, device=device)
             meta_restore, meta_pairs, meta_save = make_meta_steps(cfg, optimizer, maml_loss_fn,
-                                                                  meta_chunk)
+                                                                  meta_chunk, fused_maml)
             graphed += [meta_restore, meta_pairs, meta_save]
 
         # the run state: what the JAX scan carries besides params and

@@ -65,7 +65,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from metaviterbinet_tpu_torch.kernels import acs, online_sgd
+from metaviterbinet_tpu_torch.kernels import acs, maml_pairs, online_sgd
 from metaviterbinet_tpu_torch.train.optim import OptState
 from metaviterbinet_tpu_torch.utils import profiling
 
@@ -96,10 +96,14 @@ def chunk_steps(n: int, step_nodes: int) -> int:
 
 
 # the kernel wrappers that count their launches (kernels/acs.py,
-# kernels/online_sgd.py)
+# kernels/online_sgd.py, kernels/maml_pairs.py)
 LAUNCH_COUNTED = (acs.fused_va_detect, acs.fused_viterbinet_detect,
                   acs.fused_viterbinet_detect_chunked, acs.viterbi_decode_kernel,
-                  online_sgd.online_adapt_viterbinet)
+                  online_sgd.online_adapt_viterbinet, maml_pairs.maml_pairs_viterbinet)
+
+# the most `when` bodies with counted launches that one capture may hold:
+# their device counts are slots of a buffer made before the capture
+MAX_COUNTED_BODIES = 16
 
 # the GraphedStep whose capture is running
 _capturing: Optional["GraphedStep"] = None
@@ -133,8 +137,14 @@ def when(pred: torch.Tensor, fn: Callable, *args) -> None:
             launches[w] = w.launches - n
             w.launches = n
     if launches:
-        # no kernel fills it: the capture would replay the fill
-        hits = torch.empty((), dtype=torch.int32, device=pred.device)
+        # a slot of the buffer made before the capture: a tensor allocated in
+        # the capture would come from the graph's pool, where a replay may
+        # write an earlier temporary of the graph over it
+        slot = len(_capturing.conditional) - _capturing._counted_from
+        if slot >= MAX_COUNTED_BODIES:
+            raise RuntimeError(f"when: more than {MAX_COUNTED_BODIES} bodies with counted "
+                               "launches in one capture")
+        hits = _capturing._hits[slot]
         hits.add_(pred)
         _capturing.conditional.append((hits, launches))
 
@@ -180,6 +190,9 @@ class GraphedStep:
         # per `when` body of a capture: a device count of the replays whose
         # predicate held, and the launches the body makes in one of them
         self.conditional: list[tuple[torch.Tensor, dict[Callable, int]]] = []
+        # the running capture's counts, and its first entry in `conditional`
+        self._hits: Optional[torch.Tensor] = None
+        self._counted_from = 0
 
     def _body(self, device: torch.device) -> tuple[torch.cuda.Stream, tuple]:
         """The stream that captures `when` bodies, and a new memory pool for
@@ -246,7 +259,8 @@ class GraphedStep:
         if entry.graph is None:
             graph = self._graph = torch.cuda.CUDAGraph()
             before = [w.launches for w in LAUNCH_COUNTED]
-            n_conditional = len(self.conditional)
+            n_conditional = self._counted_from = len(self.conditional)
+            self._hits = torch.zeros(MAX_COUNTED_BODIES, dtype=torch.int32, device=device)
             _capturing = self
             with self._span(tracer, "capture"), torch.cuda.graph(graph, stream=self._stream):
                 entry.out = self.fn(*state, *entry.static)

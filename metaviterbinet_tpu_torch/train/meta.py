@@ -10,11 +10,13 @@ must be built on a score that is twice differentiable on the card
 
 The pairs of a meta iteration run as the JAX package runs them: the query
 draws sorted, duplicates masked (`sorted_unique_mask`), and a fixed number
-of pair steps, each under `when(fresh)` (`masked_pairs`), so that a
-duplicate draw performs no update and the loop has static shapes. On the
-card a chunk of `chunk_steps(meta_j_num, MAML_NODES)` pairs is captured
+of pair steps, each under `when(fresh)` (`masked_pairs`, `each_pair`), so
+that a duplicate draw performs no update and the loop has static shapes. On
+the card a chunk of `chunk_steps(meta_j_num, MAML_NODES)` pairs is captured
 once as a CUDA graph, each pair an IF node, and replayed (online/graphs.py);
-on the CPU it runs directly.
+on the CPU it runs directly. The online engine's ViterbiNet pairs run a
+chunk in one launch of a fused kernel instead (online/engine.py::
+uses_fused_maml, kernels/maml_pairs.py), through the same masked_pairs.
 """
 from __future__ import annotations
 
@@ -71,27 +73,40 @@ def _pair(pair_step: Callable, params, opt_state, st, *rows) -> None:
     st["loss"].add_(pair_step(params, opt_state, *rows))
 
 
-def masked_pairs(pair_step: Callable, rows: Callable, params, opt_state, st: dict,
+def each_pair(pair_step: Callable) -> Callable:
+    """A chunk's pairs one by one: pairs(params, opt_state, st, take, s_rx,
+    s_tx, q_rx, q_tx) runs pair_step on pair i's rows under when(take[i])
+    and adds its query loss to st["loss"]."""
+
+    def pairs(params, opt_state, st, take, s_rx, s_tx, q_rx, q_tx) -> None:
+        for i in range(take.shape[0]):
+            when(take[i], _pair, pair_step, params, opt_state, st, s_rx[i], s_tx[i], q_rx[i],
+                 q_tx[i])
+
+    return pairs
+
+
+def masked_pairs(pairs: Callable, rows: Callable, params, opt_state, st: dict,
                  j_hats: torch.Tensor, first: torch.Tensor, chunk: int,
                  pred: torch.Tensor | None = None) -> None:
     """Pairs first .. first + chunk - 1 of a meta iteration's draws j_hats
     [meta_j_num] (the JAX package's pair scan under lax.cond): the draws
-    sorted and masked (sorted_unique_mask), and pair i runs pair_step on
-    its rows under when(fresh[i] & pred). rows(st, j) -> (s_rx, s_tx, q_rx,
+    sorted and masked (sorted_unique_mask), and pair i taken where
+    take[i] = fresh[i] & pred holds. rows(st, j) -> (s_rx, s_tx, q_rx,
     q_tx) gathers the chunk's [chunk, window, T] support and [chunk, 1, T]
-    query rows of the sorted draws j [chunk] at once, so a pair's body
-    reads views of them. `first` is a [1] int64 device tensor, so one graph
-    serves every chunk. st["pairs"] (0-d int32) counts the pairs that ran
-    and st["loss"] (0-d float32) sums their query losses, on the device."""
+    query rows of the sorted draws j [chunk] at once, and pairs(params,
+    opt_state, st, take [chunk], *rows) runs the taken pairs in order
+    (each_pair's IF nodes, or the fused kernel of kernels/maml_pairs.py).
+    `first` is a [1] int64 device tensor, so one graph serves every chunk.
+    st["pairs"] (0-d int32) counts the pairs taken and st["loss"] (0-d
+    float32) sums their query losses, on the device."""
     j_sorted, fresh = sorted_unique_mask(j_hats)
     k = first + torch.arange(chunk, device=first.device)
     take = fresh.index_select(0, k)
     if pred is not None:
         take = take & pred
     st["pairs"].add_(take.sum(dtype=torch.int32))
-    s_rx, s_tx, q_rx, q_tx = rows(st, j_sorted.index_select(0, k))
-    for i in range(chunk):
-        when(take[i], _pair, pair_step, params, opt_state, st, s_rx[i], s_tx[i], q_rx[i], q_tx[i])
+    pairs(params, opt_state, st, take, *rows(st, j_sorted.index_select(0, k)))
 
 
 def make_pair_loop(loss_fn: Callable, optimizer: Optimizer, meta_lr: float, second_order: bool,
@@ -105,14 +120,14 @@ def make_pair_loop(loss_fn: Callable, optimizer: Optimizer, meta_lr: float, seco
     pairs; returns sum(query losses) / max(fresh draws, 1), a 0-d device
     tensor. st also holds the device's "loss" and "pairs" sums, which run
     resets, and the chunks' first pairs."""
-    pair_step = maml_pair_step(loss_fn, optimizer, meta_lr, second_order)
+    pairs = each_pair(maml_pair_step(loss_fn, optimizer, meta_lr, second_order))
 
     def rows(st, j):
         support, query = j[:, None] + torch.arange(-window, 0, device=j.device), j[:, None]
         return st["rx"][support], st["tx"][support], st["rx"][query], st["tx"][query]
 
     graphed = GraphedStep(lambda p, o, st, j_hats, first: masked_pairs(
-        pair_step, rows, p, o, st, j_hats, first, chunk), "maml", n_state=3)
+        pairs, rows, p, o, st, j_hats, first, chunk), "maml", n_state=3)
 
     def run(params, opt_state: OptState, st: dict, j_hats: torch.Tensor) -> torch.Tensor:
         if "firsts" not in st:

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 import chip_smoke
-from metaviterbinet_tpu_torch.kernels import acs, online_sgd
+from metaviterbinet_tpu_torch.kernels import acs, maml_pairs, online_sgd
 from metaviterbinet_tpu_torch.models import lstm, va, viterbinet
 from metaviterbinet_tpu_torch.ops.trellis import calculate_states
 from metaviterbinet_tpu_torch.train.optim import Optimizer
@@ -223,6 +223,92 @@ def test_online_adapt_witness_rejects_faulty_runs(gen, fault):
         d = chip_smoke.k6_witness(*chip_smoke.k6_witness_word(*word),
                                   fault=chip_smoke.K6_FAULTS[fault])
         assert not chip_smoke.witness_holds(d), (word, d)
+
+
+@pytest.mark.parametrize("label,iterations", [("10 pairs", 1),
+                                              ("200 pairs", chip_smoke.K7_ITERATIONS)])
+def test_maml_pairs_kernel_matches_plain(gen, label, iterations):
+    """K7 against its plain version at f32 on a slot's pairs
+    (chip_smoke.k7_slot), over one launch of 10 draws and over the slot's
+    20 launches: params within chip_smoke.K7_LIMITS, the Adam counts and the
+    pair counts the distinct draws', the summed query losses within 1e-5
+    relative, and one launch a call."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    inputs = chip_smoke.k7_slot(0)
+    before = maml_pairs.maml_pairs_viterbinet.launches
+    (pk, sk, stk), (pp, sp, stp) = (chip_smoke.k7_slot_run(*inputs, path, iterations=iterations)
+                                    for path in ("kernel", "plain"))
+    assert maml_pairs.maml_pairs_viterbinet.launches == before + iterations
+    distinct = sum(len(set(d.tolist())) for d in inputs[3][:iterations])
+    assert int(sk.count) == int(sp.count) == int(stk["pairs"]) == int(stp["pairs"]) == distinct
+    assert abs(float(stk["loss"]) / float(stp["loss"]) - 1.0) < 1e-5
+    assert chip_smoke._max_diff(pk, pp) <= chip_smoke.K7_LIMITS[label]
+
+
+@pytest.mark.parametrize("S,T,window", [(16, 300, 1), (4, 40, 2), (2, 33, 1), (8, 5, 3)])
+def test_maml_pairs_kernel_matches_plain_at_other_shapes(gen, S, T, window):
+    """One launch of 6 pairs at other state counts, word lengths and
+    windows, some pairs masked, second and first order: within 1e-5 of the
+    plain version, the counts and losses equal. T = 5 leaves CTAs of the
+    16-CTA cluster without query columns; T = 300 gives each 19."""
+    g = torch.Generator(device="cuda").manual_seed(S + T)
+    model = viterbinet.init_params(S, g, device="cuda")
+    params = {k: v.detach() for k, v in viterbinet.param_dict(model).items()}
+    L = S.bit_length() - 1
+    s_tx = torch.randint(0, 2, (6, window, T), generator=g, device="cuda").float()
+    q_tx = torch.randint(0, 2, (6, 1, T), generator=g, device="cuda").float()
+    s_rx = 1.0 - 2.0 * s_tx + 0.5 * torch.randn(s_tx.shape, generator=g, device="cuda")
+    q_rx = 1.0 - 2.0 * q_tx + 0.5 * torch.randn(q_tx.shape, generator=g, device="cuda")
+    take = torch.tensor([True, False, True, True, False, True], device="cuda")
+    labels = [calculate_states(L, tx.reshape(-1, T)).reshape(6, -1) for tx in (s_tx, q_tx)]
+    for second_order in (True, False):
+        opt = Optimizer("Adam", 1e-3)
+        runs = []
+        for fn in (maml_pairs.maml_pairs_viterbinet, maml_pairs.maml_pairs_viterbinet_plain):
+            p = {k: v.clone() for k, v in params.items()}
+            state = opt.init(p)
+            loss = torch.zeros((), device="cuda")
+            fn(p, state, opt.table(torch.device("cuda")), s_rx.reshape(6, -1), labels[0],
+               q_rx.reshape(6, -1), labels[1], take, loss, 0.1, 1e-3, second_order)
+            runs.append((p, state, loss))
+        (pk, sk, lk), (pp, sp, lp) = runs
+        assert int(sk.count) == int(sp.count) == 4
+        assert abs(float(lk) / float(lp) - 1.0) < 1e-5
+        assert chip_smoke._max_diff(pk, pp) <= 1e-5, second_order
+
+
+def test_maml_pairs_kernel_is_deterministic(gen):
+    """Two launches from the same inputs give the same bits in the params,
+    both moments and the loss: the cluster sums its partials in rank
+    order, with no atomics."""
+    inputs = chip_smoke.k7_slot(1)
+    (a, sa, sta), (b, sb, stb) = (chip_smoke.k7_slot_run(*inputs, "kernel", iterations=1)
+                                  for _ in range(2))
+    assert torch.equal(sta["loss"], stb["loss"])
+    for k in a:
+        assert torch.equal(a[k], b[k]) and torch.equal(sa.mu[k], sb.mu[k]), k
+        assert torch.equal(sa.nu[k], sb.nu[k]), k
+
+
+@pytest.mark.parametrize("seed", chip_smoke.K7_WITNESS_SEEDS)
+def test_maml_pairs_kernel_drift_is_rounding(gen, seed):
+    """Over a slot's 200 draws, K7's distance from a float64 run of its
+    plain version's arithmetic is within K7_WITNESS_MULTIPLE times that of
+    the autograd pairs it replaced (f32) plus K7_WITNESS_FLOOR
+    (chip_smoke.py)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    d = chip_smoke.k7_witness(*chip_smoke.k7_slot(seed))
+    assert chip_smoke.k7_witness_holds(d), d
+
+
+@pytest.mark.parametrize("fault", sorted(chip_smoke.K7_FAULTS))
+def test_maml_pairs_witness_rejects_faulty_runs(gen, fault):
+    """The same witness fails when the f32 run in K7's place leaves out the
+    Hessian term or takes the duplicate draws (chip_smoke.K7_FAULTS)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    d = chip_smoke.k7_witness(*chip_smoke.k7_slot(chip_smoke.K7_WITNESS_SEEDS[0]),
+                              fault=chip_smoke.K7_FAULTS[fault])
+    assert not chip_smoke.k7_witness_holds(d), d
 
 
 def _channel_words(W, gen):
@@ -892,14 +978,15 @@ def test_meta_slot_graphed_equals_the_slot_uncaptured(gen, name, weights_init):
 
 def test_duplicate_pairs_leave_the_count_unchanged_on_the_card(gen):
     """online/engine.py::make_meta_steps' pairs on the card, 10 pairs a
-    graph: over warm-ups, the capture and replays, each iteration's Adam
+    graph, one K7 launch under do_meta's IF node (the engine's fused path):
+    over warm-ups, the capture and replays, each iteration's Adam
     count advances by its distinct draws at the fill's bound and the
     device's pair count with it; a duplicate draw, and every pair at a
     fill of 2 (do_meta false), leaves params, moments and count as they
     were; the params equal the same calls made directly."""
     from metaviterbinet_tpu_torch import Config
     from metaviterbinet_tpu_torch.detectors import DETECTORS
-    from metaviterbinet_tpu_torch.online.engine import make_meta_steps, n_bounds
+    from metaviterbinet_tpu_torch.online.engine import make_meta_steps, n_bounds, uses_fused_maml
     from metaviterbinet_tpu_torch.train.losses import make_loss_fn
     cfg = Config(buffer_capacity=32)
     spec = DETECTORS["meta_vnet"]
@@ -915,7 +1002,8 @@ def test_duplicate_pairs_leave_the_count_unchanged_on_the_card(gen):
                                             "cuda"))
         state = opt.init(p)
         loss_fn = make_loss_fn(spec.meta_score, "states", cfg.memory_length, False)
-        _, pairs, _ = make_meta_steps(cfg, opt, loss_fn, 10)
+        _, pairs, _ = make_meta_steps(cfg, opt, loss_fn, 10, uses_fused_maml(cfg, spec))
+        launches = maml_pairs.maml_pairs_viterbinet.launches
         st = {"buf_rx": buf_rx.clone(), "buf_tx": buf_tx.clone(),
               "start": torch.tensor(30, dtype=torch.int32, device="cuda"),
               "n_valid": torch.zeros((), dtype=torch.int32, device="cuda"),
@@ -936,6 +1024,10 @@ def test_duplicate_pairs_leave_the_count_unchanged_on_the_card(gen):
                     now = [t.detach().clone() for t in (*p.values(), *state.mu.values())]
                     assert all(torch.equal(a, b) for a, b in zip(before, now)), i
                 assert int(state.count) == int(st["pairs"]) == count, i
+        # K7 once a call where do_meta held, counted once the step settles
+        # its IF nodes' hits
+        pairs.settle([int(h) for h, _ in pairs.conditional])
+        assert maml_pairs.maml_pairs_viterbinet.launches - launches == sum(f > 2 for f in fills)
         after[captured] = [t.detach().clone() for t in p.values()]
     assert all(torch.equal(a, b) for a, b in zip(after[True], after[False]))
 
