@@ -26,9 +26,11 @@ Phases, each of which fails the run on error:
               steps, a resumed second call of 40, and the protocol's 200
               steps on nine received words; and two K6 launches from the same
               inputs, bit-identical; K7 (fused MAML pairs) on a meta slot's
-              pairs at T = 136: one launch of 10 draws and the slot's 20
-              against its plain version, two launches bit-identical, and its
-              float64 witness against the autograd pairs it replaced;
+              pairs at T = 136: one launch of 10 draws, the slot's 20, and
+              the slot's 200 draws in one launch (the engine's) against its
+              plain version, the slot in one launch bit-identical to its 20,
+              two launches bit-identical, and its float64 witness against
+              the autograd pairs it replaced;
   4. slice    the aggregated coded-BER eval at the protocol's full width
               (300 words x 136 symbols, RS nsym=2, 4-tap time-decay fading
               channel), each path's launch counts zeroed just before and read
@@ -47,10 +49,10 @@ Phases, each of which fails the run on error:
               weights directory so that the checkpoint is trained on the
               miss: meta_vnet in meta mode (meta_train, then a meta slot
               every 5 blocks, decided on the card: the query draws of
-              the buffer's fill, the MAML pairs with duplicates masked,
-              an iteration's pairs one K7 launch under an IF node, K7's
-              launches 20 a slot that fired; and K6 on every gated
-              block), vnet
+              the buffer's fill, the MAML pairs with duplicates masked
+              within each iteration, a slot's pairs, all its iterations',
+              one K7 launch under an IF node, K7's launches one a slot
+              that fired; and K6 on every gated block), vnet
               in joint mode
               (train, then detection only), vnet in online mode (the joint
               cell's checkpoint, then 200 graphed self-supervised steps per
@@ -164,7 +166,9 @@ Phases, each of which fails the run on error:
               memory at the device count against its plain version (40 and
               a resumed 40 steps), two launches bit-identical and its
               float64 witness; K7 at one launch of 10 draws x T = 136
-              (with its bound from portbench/counts.py::maml_pair_ops); viterbi_decode_lowlat at 1 x 136 beside K5 on the
+              and at a slot's 20 x 10 draws as one call (each with its
+              bound from portbench/counts.py::maml_pair_ops);
+              viterbi_decode_lowlat at 1 x 136 beside K5 on the
               same priors, and chunked_decode_reference (one K5 over 4096
               chains of 288 steps) beside sequential K5 at 128 x 8192;
   8b. bench   `python -m metaviterbinet_tpu_torch bench` in a process of its
@@ -206,7 +210,8 @@ from metaviterbinet_tpu_torch.models import lstm, va, viterbinet
 from metaviterbinet_tpu_torch.detectors import DETECTORS
 from metaviterbinet_tpu_torch.online import graphs
 from metaviterbinet_tpu_torch.online.engine import (
-    Draws, make_adapt_step, meta_slots, run_online, uses_fused_adaptation, uses_fused_maml)
+    Draws, make_adapt_step, meta_slots, n_bounds, run_online, uses_fused_adaptation,
+    uses_fused_maml)
 from metaviterbinet_tpu_torch.online.graphs import GraphedStep, chunk_steps
 from metaviterbinet_tpu_torch.ops.trellis import calculate_states, viterbi_decode_lowlat
 from metaviterbinet_tpu_torch.parallel import decode as parallel_decode
@@ -310,8 +315,8 @@ K6_FAULTS = {"lr 1.0001e-3": {"lr": 1.0001e-3}, "eps 1e-7": {"lr": 1e-3, "eps": 
 # window 1, at the protocol's meta_lr and lr
 K7_WORDS, K7_ITERATIONS, K7_DRAWS, K7_META_LR, K7_LR = 40, 20, 10, 0.1, 1e-3
 # K7 against its plain version at f32: max |dparam| after 10 pairs (one
-# launch) and after a slot's 200 (20 launches); Adam amplifies the products'
-# other summation order as K6's 200 steps do (K6_LIMITS)
+# launch) and after a slot's 200 (20 launches, or one); Adam amplifies the
+# products' other summation order as K6's 200 steps do (K6_LIMITS)
 K7_LIMITS = {"10 pairs": 1e-5, "200 pairs": 1e-4}
 # K7's float64 witness (tests/test_torch_cuda.py, tests/test_torch_maml_kernel.py):
 # over a slot's pairs from each seed's params, buffer and draws, the
@@ -664,13 +669,64 @@ def k7_pairs(fn, opt: Optimizer, second_order: bool = True, unmasked: bool = Fal
     return pairs
 
 
+def k7_slot_table(cfg: Config, generator: torch.Generator) -> torch.Tensor:
+    """A meta slot's query draws [meta_train_iterations, n_bounds,
+    meta_j_num] on the generator's device, as Draws.j_hat_table draws them
+    (row b - 1 in [0, b)), with 0 drawn twice in the first iteration and
+    again in the second at every bound: a value that one iteration takes
+    once and two iterations take each."""
+    table = torch.stack([torch.randint(0, b, (cfg.meta_train_iterations, cfg.meta_j_num),
+                                       generator=generator, device=generator.device)
+                         for b in range(1, n_bounds(cfg) + 1)], dim=1)
+    table[0, :, :2] = 0
+    table[1, :, 3] = 0
+    return table
+
+
+def k7_iterations(cfg: Config, opt: Optimizer, p: dict, state, st: dict, table) -> None:
+    """A meta slot's fused MAML pairs one meta iteration at a time: for
+    each of the slot's draws table [meta_train_iterations, n_bounds,
+    meta_j_num] (the engine's `table[s]`), the iteration's row at the
+    fill's bound max(n_valid - 2, 1) through masked_pairs, one K7 launch
+    of its meta_j_num pairs (the kernel on the card, its plain version on
+    the CPU), on the engine's run state `st` and its ring buffer; nothing
+    where the fill is 2 or less (do_meta false). The sequence of launches
+    that online/engine.py::make_meta_steps' one launch a slot must equal
+    bit for bit. Reads the fill to the host."""
+    cap, w, L, n = cfg.buffer_capacity, cfg.window_size, cfg.memory_length, cfg.meta_j_num
+    n_valid = int(st["n_valid"])
+    if n_valid <= 2:
+        return
+
+    def rows(st, j):
+        logical = (j[:, None] + torch.arange(-w, 0, device=j.device)) % n_valid
+        support, query = (st["start"] + logical) % cap, (st["start"] + j[:, None]) % cap
+        return st["buf_rx"][support], st["buf_tx"][support], st["buf_rx"][query], \
+            st["buf_tx"][query]
+
+    def pairs(p, state, st, take, s_rx, s_tx, q_rx, q_tx):
+        def labels(tx):
+            return calculate_states(L, tx.reshape(-1, tx.shape[-1])).reshape(n, -1)
+
+        maml_pairs.maml_pairs_viterbinet(p, state, opt.table(take.device), s_rx.reshape(n, -1),
+                                         labels(s_tx), q_rx.reshape(n, -1), labels(q_tx), take,
+                                         st["loss"], cfg.meta_lr, opt.lr, cfg.MAML)
+
+    first = torch.zeros(1, dtype=torch.int64, device=table.device)
+    for draws in table[:, max(n_valid - 2, 1) - 1]:
+        masked_pairs(pairs, rows, p, state, st, draws, first, n)
+
+
 def k7_slot_run(params: dict, rx, tx, draws, pairs: str, dtype=torch.float32,
-                iterations: int = K7_ITERATIONS, fault: dict | None = None) -> tuple:
-    """A slot's pairs from params and zero moments, K7_DRAWS a call of
-    masked_pairs, through `pairs`: "kernel" (K7's wrapper: the kernel on the
-    card, its plain version on the CPU), "plain" or "autograd" (each_pair of
-    maml_pair_step, the path K7 replaced); with `fault`, the plain version
-    with those arguments. Returns (params, opt state, st)."""
+                iterations: int = K7_ITERATIONS, fault: dict | None = None,
+                one_launch: bool = False) -> tuple:
+    """A slot's pairs (its first `iterations`) from params and zero
+    moments, K7_DRAWS a call of masked_pairs, or with `one_launch` all in
+    one call (the engine's), through `pairs`: "kernel" (K7's wrapper: the
+    kernel on the card, its plain version on the CPU), "plain" or
+    "autograd" (each_pair of maml_pair_step, the path K7 replaced); with
+    `fault`, the plain version with those arguments. Returns (params, opt
+    state, st)."""
     opt = Optimizer("Adam", K7_LR)
     p = {k: v.detach().to(dtype=dtype, copy=True) for k, v in params.items()}
     state = opt.init(p)
@@ -692,8 +748,8 @@ def k7_slot_run(params: dict, rx, tx, draws, pairs: str, dtype=torch.float32,
             st["tx"][j[:, None]]
 
     first = torch.zeros(1, dtype=torch.int64, device=rx.device)
-    for d in draws[:iterations]:
-        masked_pairs(run, rows, p, state, st, d, first, K7_DRAWS)
+    for d in [draws[:iterations]] if one_launch else draws[:iterations]:
+        masked_pairs(run, rows, p, state, st, d, first, d.numel())
     return {k: v.detach() for k, v in p.items()}, state, st
 
 
@@ -930,25 +986,41 @@ def phase_kernels(model: viterbinet.ViterbiNet, trained: viterbinet.ViterbiNet,
 
 def k7_checks() -> dict:
     """K7 against its plain version at f32 over one launch of a slot's
-    first K7_DRAWS pairs and over the slot's K7_ITERATIONS launches (the
-    counts, pair counts and summed losses equal too), two launches from the
-    same inputs bit-identical, and the float64 witness on every
-    K7_WITNESS_SEEDS slot."""
+    first K7_DRAWS pairs, over the slot's K7_ITERATIONS launches and over
+    the slot in one launch (the engine's; the counts, pair counts and
+    summed losses equal too), the slot in one launch bit-identical to its
+    K7_ITERATIONS launches, two launches from the same inputs
+    bit-identical, and the float64 witness on every K7_WITNESS_SEEDS
+    slot."""
     inputs = k7_slot(K7_WITNESS_SEEDS[0])
-    errs = {}
-    for label, iterations in (("10 pairs", 1), ("200 pairs", K7_ITERATIONS)):
-        (pk, sk, stk), (pp, sp, stp) = (k7_slot_run(*inputs, path, iterations=iterations)
+    errs, kernel_runs = {}, {}
+    for label, iterations, limit, one_launch in (
+            ("10 pairs", 1, "10 pairs", False), ("200 pairs", K7_ITERATIONS, "200 pairs", False),
+            ("200 pairs, one launch", K7_ITERATIONS, "200 pairs", True)):
+        (pk, sk, stk), (pp, sp, stp) = (k7_slot_run(*inputs, path, iterations=iterations,
+                                                    one_launch=one_launch)
                                         for path in ("kernel", "plain"))
+        kernel_runs[label] = (pk, sk, stk)
         errs[label] = _max_diff(pk, pp)
         counts = [int(sk.count), int(sp.count), int(stk["pairs"]), int(stp["pairs"])]
         loss_gap = abs(float(stk["loss"]) - float(stp["loss"])) / abs(float(stp["loss"]))
         print(f"maml_pairs_viterbinet T={T_PROTO}, {label}: max |dparam| {errs[label]:.3e} vs the "
-              f"plain version (limit {K7_LIMITS[label]:g}); Adam counts and pair counts "
+              f"plain version (limit {K7_LIMITS[limit]:g}); Adam counts and pair counts "
               f"{counts}; summed query losses {float(stk['loss']):.6f} against "
               f"{float(stp['loss']):.6f} (relative gap {loss_gap:.2e})")
-        if not errs[label] <= K7_LIMITS[label] or len(set(counts)) != 1 or not loss_gap < 1e-5:
+        if not errs[label] <= K7_LIMITS[limit] or len(set(counts)) != 1 or not loss_gap < 1e-5:
             fail(f"maml_pairs_viterbinet {label}: against its plain version {errs[label]}, "
                  f"counts {counts}, loss gap {loss_gap}")
+    # the slot in one launch carries theta, the moments, the count and the
+    # loss across the iterations' boundaries as the slot's 20 launches do
+    (pa, sa, sta), (pb, sb, stb) = kernel_runs["200 pairs"], kernel_runs["200 pairs, one launch"]
+    same = all(torch.equal(x[k], y[k]) for x, y in ((pa, pb), (sa.mu, sb.mu), (sa.nu, sb.nu))
+               for k in x) and all(torch.equal(x, y) for x, y in (
+                   (sa.count, sb.count), (sta["loss"], stb["loss"]), (sta["pairs"], stb["pairs"])))
+    print(f"maml_pairs_viterbinet T={T_PROTO}: a slot's {K7_ITERATIONS * K7_DRAWS} draws in one "
+          f"launch bit-identical to its {K7_ITERATIONS} launches {same}")
+    if not same:
+        fail("maml_pairs_viterbinet: a slot in one launch differs from its launch by iteration")
     # two launches from the same inputs give the same bits: the cluster sums
     # its partial gradients in a fixed order, with no atomics
     a, b = (k7_slot_run(*inputs, "kernel", iterations=1) for _ in range(2))
@@ -1235,9 +1307,9 @@ def run_by_word(name: str, mode: str, weights_dir: str, band: tuple) -> dict:
     elif trainer.spec.model is viterbinet:
         want["viterbi_decode_kernel"] = cfg.n_words("val")
         want["online_adapt_viterbinet"] = result.n_gated if mode == "meta" else 0
-        if mode == "meta":  # K7: one launch an iteration of every slot that fired
+        if mode == "meta":  # K7: one launch a slot that fired, all its iterations' pairs
             fired = meta_slots_fired(cfg, sers)
-            want["maml_pairs_viterbinet"] = cfg.meta_train_iterations * fired
+            want["maml_pairs_viterbinet"] = fired
             print(f"{name} {mode} mode: {fired} meta slots fired, "
                   f"{launches['maml_pairs_viterbinet']} K7 launches "
                   f"(expected {want['maml_pairs_viterbinet']}), {result.steps['maml']} MAML pairs")
@@ -1834,8 +1906,8 @@ def phase_sweep(root: str, card: str) -> dict:
                 fail(f"sweep {name}: mean data BER {mean_ber} outside {ref} +- {tol}")
             # K1 once per train-on-miss minibatch (the two ViterbiNet
             # curves share one checkpoint), K5 or K2 per block, K6 per gated
-            # meta block, K7 per iteration of a meta slot that fired; none
-            # for the LSTM family
+            # meta block, K7 once per meta slot that fired; none for the
+            # LSTM family
             want = dict.fromkeys(KERNELS, 0)
             if spec.detector == "va":
                 want["fused_va_detect"] = cfg.n_words("val")
@@ -1845,8 +1917,7 @@ def phase_sweep(root: str, card: str) -> dict:
                     want["fused_viterbinet_detect"] = cfg.train_minibatch_num
                 if spec.online_meta:
                     want["online_adapt_viterbinet"] = n_gated
-                    want["maml_pairs_viterbinet"] = (trainer.cfg.meta_train_iterations
-                                                     * meta_slots_fired(trainer.cfg, ser))
+                    want["maml_pairs_viterbinet"] = meta_slots_fired(trainer.cfg, ser)
                     if n_gated == 0:
                         fail(f"sweep {name}: no block was gated, so K6 never ran")
             if launches != want:
@@ -2484,10 +2555,12 @@ def phase_width(model: viterbinet.ViterbiNet, gen: torch.Generator, card: str) -
     times[("online_adapt_viterbinet", 1)]["checked"] = k6_new_abi(card)
     # K7 at one launch of a slot's 10 draws (its duplicates masked), T = 136
     k7_params, k7_rx, k7_tx, k7_draws = k7_slot(K7_WITNESS_SEEDS[0])
+    # and a slot's K7_ITERATIONS x K7_DRAWS draws as one call (the
+    # engine's): each iteration's sorted and masked within itself, one launch
     k7 = {}
-    for path in ("kernel", "plain"):
-        fn = maml_pairs.maml_pairs_viterbinet if path == "kernel" else \
-            maml_pairs.maml_pairs_viterbinet_plain
+    for path, fn, draws in (("kernel", maml_pairs.maml_pairs_viterbinet, k7_draws[0]),
+                            ("plain", maml_pairs.maml_pairs_viterbinet_plain, k7_draws[0]),
+                            ("slot", maml_pairs.maml_pairs_viterbinet, k7_draws)):
         p = {k: v.clone() for k, v in k7_params.items()}
         opt = Optimizer("Adam", K7_LR)
         state = opt.init(p)
@@ -2498,7 +2571,7 @@ def phase_width(model: viterbinet.ViterbiNet, gen: torch.Generator, card: str) -
         k7[path] = functools.partial(
             masked_pairs, run, lambda st, j: (st["rx"][j[:, None] - 1], st["tx"][j[:, None] - 1],
                                               st["rx"][j[:, None]], st["tx"][j[:, None]]),
-            p, state, st, k7_draws[0], first, K7_DRAWS)
+            p, state, st, draws, first, draws.numel())
     # the plain version reads the mask to the host, so no graph holds it:
     # timed eagerly only
     k7_pairs_taken = len(set(k7_draws[0].tolist()))
@@ -2514,6 +2587,18 @@ def phase_width(model: viterbinet.ViterbiNet, gen: torch.Generator, card: str) -
           f"operations a pair: bound {k7_bound:.5f} ms at the card's f32 rate, "
           f"{k7_bound * N_SMS / maml_pairs.CLUSTER_SIZE:.4f} ms at its cluster's share; "
           f"{1e3 * row['ms'] / k7_pairs_taken:.3f} us a pair on the device [{card}]")
+    slot_taken = sum(len(set(d.tolist())) for d in k7_draws)
+    slot_bound = 1e3 * slot_taken * counts.maml_pair_ops(T_PROTO, 16, 1) / F32_FLOP_PER_S
+    slot_draws = K7_ITERATIONS * K7_DRAWS
+    slot = times[("maml_pairs_viterbinet", slot_draws)] = {
+        "ms": graph_ms(k7["slot"], per_graph=1, replays=5), "call_ms": call_ms(k7["slot"], reps=5),
+        "bound_ms": slot_bound, "bound_by": "operations", "pairs_taken": slot_taken}
+    print(f"width maml_pairs_viterbinet {K7_ITERATIONS} x {K7_DRAWS} draws (a slot, one call) x "
+          f"T={T_PROTO}: kernel {slot['ms']:.5f} ms on the device, {slot['call_ms']:.5f} ms per "
+          f"eager call (with the sort, mask, gather and labels); {slot_taken} draws taken: "
+          f"bound {slot_bound:.5f} ms at the card's f32 rate, "
+          f"{slot_bound * N_SMS / maml_pairs.CLUSTER_SIZE:.4f} ms at its cluster's share; "
+          f"{1e3 * slot['ms'] / slot_taken:.3f} us a pair on the device [{card}]")
     cluster = online_sgd.CLUSTER_SIZE
     k6 = times[("online_adapt_viterbinet", 1)]
     print(f"online_adapt_viterbinet: {adapt_ops(T_PROTO, 16, K6_ITERS):.4e} f32 operations for "
@@ -2666,6 +2751,8 @@ def kernel_rows(checks: dict, sl: dict, online: dict, sweep: dict, times: dict,
         "plain_call_ms": row["plain_call_ms"], "cluster_size": maml_pairs.CLUSTER_SIZE,
         "checked": checks[(name, K7_DRAWS, T_PROTO)]["by_check"],
         "witness": checks[(name, K7_DRAWS, T_PROTO)]["witness"],
+        "slot": {"shape": [K7_ITERATIONS, K7_DRAWS, T_PROTO],
+                 **times[(name, K7_ITERATIONS * K7_DRAWS)]},
     })
     for row in rows:
         row["launches_sweep"] = {curve: sweep[curve]["launches"][row["name"]]

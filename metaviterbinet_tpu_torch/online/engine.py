@@ -49,18 +49,19 @@ captured once per run and replayed once per block:
     across the meta slots' restores;
   - at a candidate meta slot, the JAX engine's `run_meta` under
     `lax.cond(do_meta)`, `do_meta = n_valid > 2` computed on the device:
-    the restore that weights_init names under `when(do_meta)`; for each of
-    the meta_train_iterations, the query draws of the fill's bound
-    `max(n_valid - 2, 1)` gathered on the device from the slot's table,
-    sorted with their duplicates masked, and the MAML pair steps (train/
-    meta.py) with their support and query rows gathered from the buffer by
-    device index arithmetic: for ViterbiNet's f32 meta loss under Adam
-    (`uses_fused_maml`) one graph of each iteration's meta_j_num pairs,
+    the restore that weights_init names under `when(do_meta)`; the MAML
+    pair steps (train/meta.py) of the meta_train_iterations, each
+    iteration's query draws those of the fill's bound `max(n_valid - 2,
+    1)`, gathered on the device from the slot's table, sorted with their
+    duplicates masked within the iteration, and the support and query rows
+    gathered from the buffer by device index arithmetic: for ViterbiNet's
+    f32 meta loss under Adam (`uses_fused_maml`) ONE graph of the slot's
+    meta_train_iterations x meta_j_num pairs, every iteration's in order,
     one launch of the fused kernel (kernels/maml_pairs.py) under
-    `when(do_meta)` that skips the duplicates itself; else graphs of
-    `chunk_steps(meta_j_num, MAML_NODES)` autograd pairs, pair i under
-    `when(do_meta & fresh[i])`; then the saved params set to the adapted
-    ones under `when(do_meta)`;
+    `when(do_meta)` that skips the duplicates itself; else, iteration by
+    iteration, graphs of `chunk_steps(meta_j_num, MAML_NODES)` autograd
+    pairs, pair i under `when(do_meta & fresh[i])`; then the saved params
+    set to the adapted ones under `when(do_meta)`;
   - the self-supervised loop, the JAX engine's `sgd_steps` under
     `lax.cond(gate)`: its `self_supervised_iterations` steps (loss,
     gradient, optimizer update) as graphs of `chunk_steps` steps back to
@@ -78,10 +79,11 @@ the fused kernel (kernels/online_sgd.py) per block under the gate's IF
 node, which reads its start powers from the device count; any other loss,
 optimizer or compute dtype, and the LSTM family's bit labels, runs the
 autograd steps (the LSTM's through its cuDNN forward). Likewise a meta
-iteration's MAML pairs for that loss in f32 are one launch of the fused
-kernel (kernels/maml_pairs.py) under the slot's IF node
-(`uses_fused_maml`); any other MAML step goes through autograd on the
-spec's `meta_score`.
+slot's MAML pairs for that loss in f32, all its iterations', are one
+launch of the fused kernel (kernels/maml_pairs.py) under the slot's IF
+node (`uses_fused_maml`); any other MAML step goes through autograd on the
+spec's `meta_score`, in graphs of a few pairs each (a slot's autograd
+pairs would far exceed graphs.MAX_GRAPH_NODES).
 """
 from __future__ import annotations
 
@@ -299,13 +301,15 @@ def make_meta_steps(cfg: Config, optimizer: Optimizer, loss_fn: Callable, chunk:
     graphed calls:
       - restore(p, opt_state, st, src): p <- src, the params weights_init
         names, and under weights_init='random' a fresh optimizer state;
-      - pairs(p, opt_state, st, table [n_bounds, meta_j_num], first [1]):
-        `chunk` pairs from `first` of one meta iteration (its `meta_adapt`),
-        the query draws the table's row at the fill's bound `max(n_valid -
-        2, 1)`, the pairs taken where `do_meta & fresh` holds
-        (masked_pairs) on the buffer's rows: with `fused`, the chunk as one
-        launch of the fused kernel under `when(do_meta)` (loss_fn unused),
-        else each pair under `when(do_meta & fresh)` (each_pair);
+      - pairs(p, opt_state, st, table [meta_train_iterations, n_bounds,
+        meta_j_num], first [1]): the MAML pairs (masked_pairs) first ..
+        first + chunk - 1 of a slot's, its iterations' (each a
+        `meta_adapt`) in order, each iteration's query draws the table's
+        row at the fill's bound `max(n_valid - 2, 1)`, sorted and masked
+        within the iteration, the pairs taken where `do_meta & fresh` holds
+        on the buffer's rows: with `fused`, the chunk as one launch of the
+        fused kernel under `when(do_meta)` (loss_fn unused), else each pair
+        under `when(do_meta & fresh)` (each_pair);
       - save(saved, p, st): saved <- p."""
     cap, w, L = cfg.buffer_capacity, cfg.window_size, cfg.memory_length
     reset = cfg.weights_init == "random"
@@ -322,7 +326,7 @@ def make_meta_steps(cfg: Config, optimizer: Optimizer, loss_fn: Callable, chunk:
         return st["buf_rx"][support], st["buf_tx"][support], st["buf_rx"][query], st["buf_tx"][query]
 
     def labels(tx):
-        # [chunk, rows, T] words -> [chunk, rows * T] trellis states, word by word
+        # [pairs, rows, T] words -> [pairs, rows * T] trellis states, word by word
         return calculate_states(L, tx.reshape(-1, tx.shape[-1])).reshape(tx.shape[0], -1)
 
     def fused_pairs(p, opt_state, st, take, s_rx, s_tx, q_rx, q_tx):
@@ -334,15 +338,15 @@ def make_meta_steps(cfg: Config, optimizer: Optimizer, loss_fn: Callable, chunk:
     chunk_pairs = fused_pairs if fused else each_pair(
         maml_pair_step(loss_fn, optimizer, cfg.meta_lr, cfg.MAML))
 
+    def pairs(p, opt_state, st, table, first):
+        bound = torch.clamp(st["n_valid"] - 2, min=1)
+        j_hats = table.index_select(1, (bound - 1).reshape(1).long())[:, 0]
+        masked_pairs(chunk_pairs, rows, p, opt_state, st, j_hats, first, chunk, do_meta(st))
+
     def init(p, opt_state, src):
         _restore(p, src)
         if reset:
             optimizer.init(p, out=opt_state)
-
-    def pairs(p, opt_state, st, table, first):
-        bound = torch.clamp(st["n_valid"] - 2, min=1)
-        j_hats = table.index_select(0, (bound - 1).reshape(1).long())[0]
-        masked_pairs(chunk_pairs, rows, p, opt_state, st, j_hats, first, chunk, do_meta(st))
 
     return (GraphedStep(lambda p, o, st, src: when(do_meta(st), init, p, o, src), "meta_restore",
                         n_state=4),
@@ -471,9 +475,13 @@ def _run_online(cfg: Config, spec, params, tx_words: torch.Tensor, rx_words: tor
                 src = _snapshot(p if meta_init_params is None
                                 else spec.model.param_dict(meta_init_params))
             fused_maml = uses_fused_maml(cfg, spec)
-            meta_chunk = cfg.meta_j_num if fused_maml else chunk_steps(cfg.meta_j_num,
-                                                                       spec.model.MAML_NODES)
-            firsts = torch.arange(0, cfg.meta_j_num, meta_chunk, device=device)
+            # a slot's pairs in one graphed call (one launch) for the fused
+            # kernel; autograd's in graphs of a few of an iteration's pairs,
+            # since a slot's would far exceed graphs.MAX_GRAPH_NODES
+            slot_pairs = cfg.meta_train_iterations * cfg.meta_j_num
+            meta_chunk = slot_pairs if fused_maml else chunk_steps(cfg.meta_j_num,
+                                                                   spec.model.MAML_NODES)
+            firsts = torch.arange(0, slot_pairs, meta_chunk, device=device)
             meta_restore, meta_pairs, meta_save = make_meta_steps(cfg, optimizer, maml_loss_fn,
                                                                   meta_chunk, fused_maml)
             graphed += [meta_restore, meta_pairs, meta_save]
@@ -508,9 +516,8 @@ def _run_online(cfg: Config, spec, params, tx_words: torch.Tensor, rx_words: tor
                 if cfg.weights_init == "random":
                     _restore(src, drawn[s])
                 meta_restore(p, opt_state, st, src)
-                for iteration in range(cfg.meta_train_iterations):
-                    for c in range(firsts.shape[0]):
-                        meta_pairs(p, opt_state, st, table[s, iteration], firsts[c:c + 1])
+                for c in range(firsts.shape[0]):
+                    meta_pairs(p, opt_state, st, table[s], firsts[c:c + 1])
                 meta_save(saved, p, st)
 
         if self_sup:

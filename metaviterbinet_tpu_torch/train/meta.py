@@ -15,8 +15,11 @@ that a duplicate draw performs no update and the loop has static shapes. On
 the card a chunk of `chunk_steps(meta_j_num, MAML_NODES)` pairs is captured
 once as a CUDA graph, each pair an IF node, and replayed (online/graphs.py);
 on the CPU it runs directly. The online engine's ViterbiNet pairs run a
-chunk in one launch of a fused kernel instead (online/engine.py::
-uses_fused_maml, kernels/maml_pairs.py), through the same masked_pairs.
+whole meta slot, every iteration's pairs in order, in one launch of a
+fused kernel instead (online/engine.py::uses_fused_maml, kernels/
+maml_pairs.py), through the same masked_pairs given the slot's
+[iterations, meta_j_num] draws: each iteration's sorted and masked within
+itself, as the iterations one by one would.
 """
 from __future__ import annotations
 
@@ -30,13 +33,14 @@ from metaviterbinet_tpu_torch.train.optim import Optimizer, OptState
 
 def sorted_unique_mask(j_hats: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """`torch.unique` semantics under static shapes (trainer.py:336-338,
-    404-406; the JAX package's sorted_unique_mask): the draws in ascending
-    order and the mask of each value's first occurrence, on the draws'
+    404-406; the JAX package's sorted_unique_mask) along the last
+    dimension: the draws in ascending order and the mask of each value's
+    first occurrence, each row of [..., n] draws on its own, on the draws'
     device with no host read. Masked-out entries must perform no update, so
     duplicate draws mean fewer (support, query) updates."""
     j_sorted = torch.sort(j_hats).values
-    fresh = torch.cat([torch.ones(1, dtype=torch.bool, device=j_hats.device),
-                       j_sorted[1:] != j_sorted[:-1]])
+    fresh = torch.cat([torch.ones_like(j_sorted[..., :1], dtype=torch.bool),
+                       j_sorted[..., 1:] != j_sorted[..., :-1]], dim=-1)
     return j_sorted, fresh
 
 
@@ -89,18 +93,22 @@ def each_pair(pair_step: Callable) -> Callable:
 def masked_pairs(pairs: Callable, rows: Callable, params, opt_state, st: dict,
                  j_hats: torch.Tensor, first: torch.Tensor, chunk: int,
                  pred: torch.Tensor | None = None) -> None:
-    """Pairs first .. first + chunk - 1 of a meta iteration's draws j_hats
-    [meta_j_num] (the JAX package's pair scan under lax.cond): the draws
-    sorted and masked (sorted_unique_mask), and pair i taken where
-    take[i] = fresh[i] & pred holds. rows(st, j) -> (s_rx, s_tx, q_rx,
-    q_tx) gathers the chunk's [chunk, window, T] support and [chunk, 1, T]
-    query rows of the sorted draws j [chunk] at once, and pairs(params,
-    opt_state, st, take [chunk], *rows) runs the taken pairs in order
-    (each_pair's IF nodes, or the fused kernel of kernels/maml_pairs.py).
-    `first` is a [1] int64 device tensor, so one graph serves every chunk.
-    st["pairs"] (0-d int32) counts the pairs taken and st["loss"] (0-d
-    float32) sums their query losses, on the device."""
-    j_sorted, fresh = sorted_unique_mask(j_hats)
+    """Pairs first .. first + chunk - 1 of meta iterations' draws j_hats,
+    [meta_j_num] for one iteration or [iterations, meta_j_num] for several
+    in order (the JAX package's pair scan under lax.cond, once an
+    iteration): each iteration's draws sorted and masked within themselves
+    (sorted_unique_mask), so that a value drawn twice in one iteration is
+    taken once and one drawn in two iterations in both, the iterations'
+    pairs then in order, and pair i taken where take[i] = fresh[i] & pred
+    holds. rows(st, j) -> (s_rx, s_tx, q_rx, q_tx) gathers the chunk's
+    [chunk, window, T] support and [chunk, 1, T] query rows of the sorted
+    draws j [chunk] at once, and pairs(params, opt_state, st, take [chunk],
+    *rows) runs the taken pairs in order (each_pair's IF nodes, or the
+    fused kernel of kernels/maml_pairs.py). `first` is a [1] int64 device
+    tensor, so one graph serves every chunk. st["pairs"] (0-d int32)
+    counts the pairs taken and st["loss"] (0-d float32) sums their query
+    losses, on the device."""
+    j_sorted, fresh = (t.reshape(-1) for t in sorted_unique_mask(j_hats))
     k = first + torch.arange(chunk, device=first.device)
     take = fresh.index_select(0, k)
     if pred is not None:

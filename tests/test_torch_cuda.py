@@ -977,13 +977,13 @@ def test_meta_slot_graphed_equals_the_slot_uncaptured(gen, name, weights_init):
 
 
 def test_duplicate_pairs_leave_the_count_unchanged_on_the_card(gen):
-    """online/engine.py::make_meta_steps' pairs on the card, 10 pairs a
-    graph, one K7 launch under do_meta's IF node (the engine's fused path):
-    over warm-ups, the capture and replays, each iteration's Adam
-    count advances by its distinct draws at the fill's bound and the
-    device's pair count with it; a duplicate draw, and every pair at a
-    fill of 2 (do_meta false), leaves params, moments and count as they
-    were; the params equal the same calls made directly."""
+    """online/engine.py::make_meta_steps' pairs on the card, a slot's 20 x
+    10 pairs a graph, one K7 launch under do_meta's IF node (the engine's
+    fused path): over warm-ups, the capture and replays, each slot's Adam
+    count advances by the distinct draws of each of its iterations at the
+    fill's bound and the device's pair count with it; a duplicate draw, and
+    every pair at a fill of 2 (do_meta false), leaves params, moments and
+    count as they were; the params equal the same calls made directly."""
     from metaviterbinet_tpu_torch import Config
     from metaviterbinet_tpu_torch.detectors import DETECTORS
     from metaviterbinet_tpu_torch.online.engine import make_meta_steps, n_bounds, uses_fused_maml
@@ -993,6 +993,7 @@ def test_duplicate_pairs_leave_the_count_unchanged_on_the_card(gen):
     rows = [[5, 5, 5, 5, 5, 5, 5, 5, 5, 5], [0, 1, 2, 3, 4, 5, 6, 7, 8, 9],
             [3, 1, 3, 1, 3, 1, 3, 1, 3, 1], [9, 9, 0, 0, 4, 4, 2, 2, 7, 7]]
     fills = (12, 12, 2, 12, 12, 2, 12)  # bound 10 where the fill is 12
+    iterations = cfg.meta_train_iterations
     buf_rx = torch.randn((32, 136), generator=gen, device="cuda")
     buf_tx = torch.randint(0, 2, (32, 136), generator=gen, device="cuda").float()
     after = {}
@@ -1002,24 +1003,27 @@ def test_duplicate_pairs_leave_the_count_unchanged_on_the_card(gen):
                                             "cuda"))
         state = opt.init(p)
         loss_fn = make_loss_fn(spec.meta_score, "states", cfg.memory_length, False)
-        _, pairs, _ = make_meta_steps(cfg, opt, loss_fn, 10, uses_fused_maml(cfg, spec))
+        _, pairs, _ = make_meta_steps(cfg, opt, loss_fn, iterations * 10,
+                                      uses_fused_maml(cfg, spec))
+        first = torch.zeros(1, dtype=torch.int64, device="cuda")
         launches = maml_pairs.maml_pairs_viterbinet.launches
         st = {"buf_rx": buf_rx.clone(), "buf_tx": buf_tx.clone(),
               "start": torch.tensor(30, dtype=torch.int32, device="cuda"),
               "n_valid": torch.zeros((), dtype=torch.int32, device="cuda"),
               "pairs": torch.zeros((), dtype=torch.int32, device="cuda"),
               "loss": torch.zeros((), device="cuda")}
-        first = torch.zeros(1, dtype=torch.int64, device="cuda")
         count = 0
         with contextlib.nullcontext() if captured else chip_smoke.no_capture():
             for i, fill in enumerate(fills):
-                table = torch.zeros((n_bounds(cfg), 10), dtype=torch.int64, device="cuda")
-                table[9] = torch.tensor(rows[i % len(rows)], device="cuda")
+                slot = [rows[(i + r) % len(rows)] for r in range(iterations)]
+                table = torch.zeros((iterations, n_bounds(cfg), 10), dtype=torch.int64,
+                                    device="cuda")
+                table[:, 9] = torch.tensor(slot, device="cuda")
                 st["n_valid"].fill_(fill)
                 before = [t.detach().clone() for t in (*p.values(), *state.mu.values())]
                 pairs(p, state, st, table, first)
                 if fill > 2:
-                    count += len(set(rows[i % len(rows)]))
+                    count += sum(len(set(r)) for r in slot)
                 else:
                     now = [t.detach().clone() for t in (*p.values(), *state.mu.values())]
                     assert all(torch.equal(a, b) for a, b in zip(before, now)), i
@@ -1030,6 +1034,64 @@ def test_duplicate_pairs_leave_the_count_unchanged_on_the_card(gen):
         assert maml_pairs.maml_pairs_viterbinet.launches - launches == sum(f > 2 for f in fills)
         after[captured] = [t.detach().clone() for t in p.values()]
     assert all(torch.equal(a, b) for a, b in zip(after[True], after[False]))
+
+
+def test_fused_slot_in_one_call_equals_its_iterations_on_the_card(gen):
+    """make_meta_steps' fused pairs on the card, a slot's 20 x 10 pairs in
+    one graphed call with one K7 launch under do_meta's IF node, over two
+    warm-ups, the capture and two replays, against the same calls
+    uncaptured (chip_smoke.no_capture) and against the slots as 20 direct
+    K7 launches of an iteration's 10 pairs each (chip_smoke.k7_iterations):
+    after every slot, params, moments, count, summed query loss and pair
+    count torch.equal; K7's launches up by one a call where do_meta held
+    (20 for the iterations). Fills of 12, 2 (do_meta false), 32 (the ring
+    full, started at slot 30), 5 (bound 3: most draws repeat) and 12; each
+    slot's draws chip_smoke.k7_slot_table's, 0 twice in its first iteration
+    and again in its second."""
+    from metaviterbinet_tpu_torch import Config
+    from metaviterbinet_tpu_torch.detectors import DETECTORS
+    from metaviterbinet_tpu_torch.online.engine import make_meta_steps
+    cfg = Config(buffer_capacity=32)
+    spec = DETECTORS["meta_vnet"]
+    fills = (12, 2, 32, 5, 12)
+    buf_rx = torch.randn((32, 136), generator=gen, device="cuda")
+    buf_tx = torch.randint(0, 2, (32, 136), generator=gen, device="cuda").float()
+    tables = [chip_smoke.k7_slot_table(cfg, gen) for _ in fills]
+    runs = {}
+    for how in ("captured", "uncaptured", "iterations"):
+        opt = Optimizer("Adam", cfg.lr)
+        p = spec.model.param_dict(spec.init(cfg, torch.Generator(device="cuda").manual_seed(1),
+                                            "cuda"))
+        state = opt.init(p)
+        _, pairs, _ = make_meta_steps(cfg, opt, None, cfg.meta_train_iterations * cfg.meta_j_num,
+                                      fused=True)
+        first = torch.zeros(1, dtype=torch.int64, device="cuda")
+        launches = maml_pairs.maml_pairs_viterbinet.launches
+        st = {"buf_rx": buf_rx.clone(), "buf_tx": buf_tx.clone(),
+              "start": torch.tensor(30, dtype=torch.int32, device="cuda"),
+              "n_valid": torch.zeros((), dtype=torch.int32, device="cuda"),
+              "pairs": torch.zeros((), dtype=torch.int32, device="cuda"),
+              "loss": torch.zeros((), device="cuda")}
+        after = []
+        with chip_smoke.no_capture() if how == "uncaptured" else contextlib.nullcontext():
+            for fill, table in zip(fills, tables):
+                st["n_valid"].fill_(fill)
+                if how == "iterations":
+                    chip_smoke.k7_iterations(cfg, opt, p, state, st, table)
+                else:
+                    pairs(p, state, st, table, first)
+                after.append([t.detach().clone() for t in (
+                    *p.values(), *state.mu.values(), *state.nu.values(), state.count,
+                    st["loss"], st["pairs"])])
+        pairs.settle([int(h) for h, _ in pairs.conditional])
+        per_call = cfg.meta_train_iterations if how == "iterations" else 1
+        assert maml_pairs.maml_pairs_viterbinet.launches - launches == \
+            per_call * sum(f > 2 for f in fills), how
+        runs[how] = after
+    assert int(runs["captured"][-1][-1]) > 0
+    for how in ("uncaptured", "iterations"):
+        for i, (a, b) in enumerate(zip(runs["captured"], runs[how])):
+            assert all(torch.equal(x, y) for x, y in zip(a, b)), (how, i)
 
 
 # ------------------------------------------- the tracer's stamps on the card
@@ -1118,8 +1180,13 @@ def test_tracer_clock_agrees_with_the_profiler(gen):
     the profiler's start of a stamp kernel, and every stamp kernel the
     profiler saw in the run within 50 us of one of the tracer's (matched to
     the nearest: the profiler has been seen to drop an activity in a few
-    thousand, PERF.md); the run reads the device once."""
-    from metaviterbinet_tpu_torch.online.engine import run_online
+    thousand, PERF.md); the run reads the device once; the tracer holds
+    the run's spans, by name as many as its blocks, candidate meta slots and
+    graphed steps make, each stamped twice."""
+    from collections import Counter
+
+    from metaviterbinet_tpu_torch.online.engine import meta_slots, run_online
+    from metaviterbinet_tpu_torch.online.graphs import WARMUP_STEPS
     from metaviterbinet_tpu_torch.utils import profiling
     from metaviterbinet_tpu_torch.utils.profiling import Tracer
     cfg, spec, params, tx, rx, h, draws = _meta_run_inputs(gen, 50)
@@ -1137,7 +1204,21 @@ def test_tracer_clock_agrees_with_the_profiler(gen):
     profiled = np.asarray([t for t, name in activities if "stamp_kernel" in name])
     ours = np.asarray(sorted(t for sp in s.spans for t in sp.device))
     assert s.dropped == 0 and results[0].host_reads == 1
-    assert len(ours) > 1000 and len(profiled) <= len(ours) + profiling.CALIBRATIONS + 1
+    # every span of the run, each stamped twice: a block's eight, a
+    # candidate meta slot's four (its pairs one graphed call), each graphed
+    # step's warm-ups and capture (the block's pilot graph, with two pilots
+    # in 50 blocks, only warmed up) and the run's
+    slots = len(meta_slots(cfg, 50))
+    want = Counter({name: 50 for name in ("detect", "block", "detect.viterbi", "detect.rs_decode",
+                                          "detect.label", "adapt", "restore", "self_supervised")})
+    want.update({name: slots for name in ("meta", "meta_restore", "maml", "meta_save")})
+    for name in ("restore", "self_supervised", "meta_restore", "maml", "meta_save"):
+        want.update({f"{name}.warmup": WARMUP_STEPS, f"{name}.capture": 1})
+    want.update({"block.warmup": 2 * WARMUP_STEPS, "block.capture": 1, "run": 1, "start": 1,
+                 "sync": 1})
+    assert Counter(sp.name for sp in s.spans) == want
+    assert len(ours) == 2 * sum(want.values())
+    assert len(profiled) <= len(ours) + profiling.CALIBRATIONS + 1
 
     def nearest(a, b):
         i = np.clip(np.searchsorted(b, a), 1, len(b) - 1)

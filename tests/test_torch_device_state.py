@@ -319,8 +319,8 @@ def test_duplicate_pairs_leave_the_count_unchanged(weights_init):
           "buf_tx": torch.tensor(rng.integers(0, 2, size=(16, 24)).astype(np.float32)),
           "start": torch.tensor(3, dtype=torch.int32), "n_valid": torch.tensor(6, dtype=torch.int32),
           "pairs": torch.zeros((), dtype=torch.int32), "loss": torch.zeros(())}
-    table = torch.zeros((14, 6), dtype=torch.int64)
-    table[3] = torch.tensor([2, 0, 2, 3, 0, 2])  # the row of bound 4
+    table = torch.zeros((1, 14, 6), dtype=torch.int64)  # one iteration's draws
+    table[0, 3] = torch.tensor([2, 0, 2, 3, 0, 2])  # the row of bound 4
     saved = {k: v.detach().clone() for k, v in p.items()}
     firsts = torch.tensor([0, 3])
     for n_valid, want_count in ((6, 3), (2, 3), (6, 6)):

@@ -193,12 +193,56 @@ def test_masked_pairs_change_nothing(masked):
                               states.reshape(4, T), rx[4:8], states.reshape(4, T).clone(),
                               torch.zeros(4, dtype=torch.bool), st["loss"], META_LR, LR, True)
     else:
-        _, pairs, _ = make_meta_steps(cfg, opt, None, 4, fused=True)
-        table = torch.zeros((14, 4), dtype=torch.int64)
+        slot = cfg.meta_train_iterations * cfg.meta_j_num
+        _, pairs, _ = make_meta_steps(cfg, opt, None, slot, fused=True)
+        table = torch.zeros((cfg.meta_train_iterations, 14, 4), dtype=torch.int64)
         pairs(p, state, st, table, torch.tensor([0]))
     after = [*p.values(), *state.mu.values(), *state.nu.values()]
     assert all(torch.equal(a, b) for a, b in zip(before, after))
     assert int(state.count) == 7 and int(st["pairs"]) == 0 and float(st["loss"]) == 0.0
+
+
+@pytest.mark.parametrize("fill", [2, 5, 24])
+@pytest.mark.parametrize("second_order", [True, False])
+def test_fused_slot_in_one_call_equals_its_iterations_launch_by_launch(second_order, fill):
+    """make_meta_steps' fused pairs, a slot's 20 x 10 pairs in one call and
+    one K7 call, against the same slot as 20 iterations of masked_pairs with
+    a 10-pair K7 call each (chip_smoke.k7_iterations): params, moments,
+    count, summed query loss and pair count torch.equal, at a fill of 2
+    (do_meta false: nothing changes), 5 (bound 3: most draws repeat within
+    an iteration) and a full ring of 24 started at slot 21. The table
+    draws 0 twice in one iteration (taken once) and in two (taken in
+    both): a variant that sorted the slot's draws across its iterations, or
+    masked a value drawn in an earlier iteration, takes other pairs or
+    takes them in another order, and fails."""
+    cfg = Config(buffer_capacity=24, val_block_length=24, n_symbols=1, MAML=second_order)
+    rx, tx = _words(24, 8)
+    table = chip_smoke.k7_slot_table(cfg, torch.Generator().manual_seed(9))
+    runs = []
+    for one_call in (True, False):
+        opt = Optimizer("Adam", cfg.lr)
+        p = _params(10)
+        state = opt.init(p)
+        state.count.fill_(3)
+        st = {"buf_rx": rx.clone(), "buf_tx": tx.clone(),
+              "start": torch.tensor(21 if fill == 24 else 0, dtype=torch.int32),
+              "n_valid": torch.tensor(fill, dtype=torch.int32),
+              "pairs": torch.zeros((), dtype=torch.int32), "loss": torch.zeros(())}
+        if one_call:
+            _, pairs, _ = make_meta_steps(cfg, opt, None,
+                                          cfg.meta_train_iterations * cfg.meta_j_num, fused=True)
+            pairs(p, state, st, table, torch.tensor([0]))
+        else:
+            chip_smoke.k7_iterations(cfg, opt, p, state, st, table)
+        runs.append([*p.values(), *state.mu.values(), *state.nu.values(), state.count,
+                     st["loss"], st["pairs"]])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    bound = max(fill - 2, 1)
+    taken = sum(len(set(d.tolist())) for d in table[:, bound - 1]) if fill > 2 else 0
+    assert int(runs[0][-1]) == int(runs[0][-3]) - 3 == taken
+    assert taken == 0 or taken < cfg.meta_train_iterations * cfg.meta_j_num
+    assert (taken > 0) == any(not torch.equal(a, b) for a, b in zip(runs[0][:6],
+                                                                   _params(10).values()))
 
 
 def test_fused_pairs_only_for_vnet_meta_loss_under_adam():
