@@ -205,7 +205,7 @@ from metaviterbinet_tpu_torch import Config, bench, cli, load_config
 from metaviterbinet_tpu_torch.data.dataset import ChannelDataset, generate_words
 from metaviterbinet_tpu_torch.ecc.rs import rs_encode_bits
 from metaviterbinet_tpu_torch.evaluation.trainer import Trainer
-from metaviterbinet_tpu_torch.kernels import acs, maml_pairs, online_sgd
+from metaviterbinet_tpu_torch.kernels import acs, maml_pairs, native, online_sgd
 from metaviterbinet_tpu_torch.models import lstm, va, viterbinet
 from metaviterbinet_tpu_torch.detectors import DETECTORS
 from metaviterbinet_tpu_torch.online import graphs
@@ -792,16 +792,16 @@ def _max_diff(a: dict, b: dict) -> float:
 # --------------------------------------------------------------- phases
 
 def phase_build() -> None:
-    seconds = acs.build_kernels()
+    seconds = native.build_kernels()
     for name, s in seconds.items():
         print(f"build {name}: {s:.1f} s")
-        for line in acs.build_reports[name].splitlines():
+        for line in native.build_reports[name].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
     # K1's and K4's products run on the tensor cores: wgmma is HGMMA in SASS
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for name in ("viterbinet_detect", "viterbinet_detect_chunked"):
-        sass = subprocess.run([tool, "-sass", str(acs.library_path(name))], capture_output=True,
+        sass = subprocess.run([tool, "-sass", str(native.library_path(name))], capture_output=True,
                               text=True, check=True, timeout=120).stdout
         n = sass.count("HGMMA")
         print(f"{name}: {n} HGMMA (wgmma) instructions in its SASS")
@@ -902,7 +902,7 @@ def phase_kernels(model: viterbinet.ViterbiNet, trained: viterbinet.ViterbiNet,
                        against="a second launch from the same inputs")
         y64 = 2 * torch.randn(64, generator=gen, device="cuda")
         tile = acs.viterbinet_tile_priors(net, y64)
-        tile_err = float((tile - acs._bf16_priors(net, y64[None]).reshape(64, S)).abs().max())
+        tile_err = float((tile - acs.bf16_priors(net, y64[None]).reshape(64, S)).abs().max())
         print(f"viterbinet_tile_priors S={S}: one tensor-core tile's priors max |diff| "
               f"{tile_err:.3e} vs the plain version (limit {TILE_TOL:g})")
         if not tile_err <= TILE_TOL:

@@ -37,7 +37,7 @@
 // 0.3 us at the card's f32 rate, but the pairs are sequential and each is
 // small, so the kernel runs on one cluster of kCluster = 16 CTAs, whose share
 // of that rate makes ~2.5 us a pair. What the design does about it, K6's
-// layout (online_adapt.cu):
+// layout (online_adapt.cu, viterbinet_cluster.cuh):
 //   - the support's and the query's columns are split across the cluster,
 //     ceil(n / 16) per CTA; forward, softmax and the backward to dh1, and the
 //     R pass, are column-local. Each CTA holds theta, theta', the direction
@@ -66,64 +66,11 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "viterbinet_cluster.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
-
-constexpr int kH1 = 100;
-constexpr int kH2 = 50;
-constexpr int kLd2 = 52;             // row stride of the [t][50] activations (16-byte rows)
-constexpr int kThreads = 256;
-constexpr int kCluster = 16;         // CTAs of the cluster (kernels/online_sgd.py::CLUSTER_SIZE)
-constexpr int kHalf = kH2 / 2;       // a thread's rows of a 50 x 100 product: j and j + 25
-constexpr int kQuads = kH1 / 4;      // float4 groups along the 100 hidden units
-constexpr int kGradRows = 5;         // a weight gradient's tile: 5 rows x 4 columns
-constexpr int kGradTiles = (kH2 / kGradRows) * kQuads;
-constexpr int kMaxSmemBytes = 232448;  // what one CTA may use on an H100
-
-// the six tensors in the order w1 [100] (the [100, 1] weight), b1 [100],
-// w2 [50, 100], b2 [50], w3 [S, 50], b3 [S]; in shared memory they lie back
-// to back in that order
-struct Tensors {
-  float* t[6];
-};
-
-template <int S>
-struct Layout {
-  static constexpr int kW1 = 0;
-  static constexpr int kB1 = kW1 + kH1;
-  static constexpr int kW2 = kB1 + kH1;
-  static constexpr int kB2 = kW2 + kH2 * kH1;
-  static constexpr int kW3 = kB2 + kH2;
-  static constexpr int kB3 = kW3 + S * kH2;
-  static constexpr int kCount = kB3 + S;
-  static constexpr int kPadded = (kCount + 3) & ~3;  // each copy ends in zeros up to here
-  static constexpr int kLdl = S + 1;  // row stride of the [t][S] logits; slot S holds a CE
-};
-
-// the flat parameter index i inside the six tensors
-template <int S>
-__device__ __forceinline__ float* element(const Tensors& ts, int i) {
-  using L = Layout<S>;
-  if (i < L::kB1) return ts.t[0] + i;
-  if (i < L::kW2) return ts.t[1] + (i - L::kB1);
-  if (i < L::kB2) return ts.t[2] + (i - L::kW2);
-  if (i < L::kW3) return ts.t[3] + (i - L::kB2);
-  if (i < L::kB3) return ts.t[4] + (i - L::kW3);
-  return ts.t[5] + (i - L::kB3);
-}
-
-__host__ __device__ constexpr int align4(int n) { return (n + 3) & ~3; }
-
-// the parameters owned by each CTA of the cluster: a slice of kSlice (a
-// multiple of 4, so that slices are whole float4 quads)
-template <int S>
-constexpr int kSlice = align4((Layout<S>::kPadded + kCluster - 1) / kCluster);
-
-template <int S>
-__device__ __forceinline__ int slice_len(int r) {
-  return min(kSlice<S>, Layout<S>::kPadded - r * kSlice<S>);
-}
 
 // offsets, in floats, of one CTA's shared memory with cs support columns and
 // cw = max(cs, query columns) work columns; every CTA has the same layout, so
@@ -171,20 +118,6 @@ struct Args {
 
 __device__ __forceinline__ const float4& f4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void fma4(float& acc, const float4& a, const float4& b) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  acc = fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ void fma4(float4& acc, const float4& a, float b) {
-  acc.x = fmaf(a.x, b, acc.x);
-  acc.y = fmaf(a.y, b, acc.y);
-  acc.z = fmaf(a.z, b, acc.z);
-  acc.w = fmaf(a.w, b, acc.w);
 }
 
 // ------------------------------------------------------------------ phases

@@ -59,65 +59,11 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "viterbinet_cluster.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
-
-constexpr int kH1 = 100;
-constexpr int kH2 = 50;
-constexpr int kLd2 = 52;             // row stride of the [t][50] activations (16-byte rows)
-constexpr int kThreads = 256;
-constexpr int kCluster = 16;         // CTAs of the cluster (kernels/online_sgd.py::CLUSTER_SIZE)
-constexpr int kRowTiles = kH2 / 2;   // W2 h1: a thread's rows are j and j + 25
-constexpr int kQuads = kH1 / 4;      // float4 groups along the 100 hidden units
-constexpr int kGradRows = 5;         // dz2 h1^T: 5 rows x 4 columns per thread
-constexpr int kGradTiles = (kH2 / kGradRows) * kQuads;
-constexpr int kMaxSmemBytes = 232448;  // what one CTA may use on an H100
-
-// the six tensors in the order w1 [100] (the [100, 1] weight), b1 [100],
-// w2 [50, 100], b2 [50], w3 [S, 50], b3 [S]; in shared memory they lie back
-// to back in that order
-struct Tensors {
-  float* t[6];
-};
-
-template <int S>
-struct Layout {
-  static constexpr int kW1 = 0;
-  static constexpr int kB1 = kW1 + kH1;
-  static constexpr int kW2 = kB1 + kH1;
-  static constexpr int kB2 = kW2 + kH2 * kH1;
-  static constexpr int kW3 = kB2 + kH2;
-  static constexpr int kB3 = kW3 + S * kH2;
-  static constexpr int kCount = kB3 + S;
-  static constexpr int kPadded = (kCount + 3) & ~3;  // P and G end in zeros up to here
-  static constexpr int kLdl = S + 1;  // row stride of the [t][S] logits
-};
-
-// the flat parameter index i inside the six tensors
-template <int S>
-__device__ __forceinline__ float* element(const Tensors& ts, int i) {
-  using L = Layout<S>;
-  if (i < L::kB1) return ts.t[0] + i;
-  if (i < L::kW2) return ts.t[1] + (i - L::kB1);
-  if (i < L::kB2) return ts.t[2] + (i - L::kW2);
-  if (i < L::kW3) return ts.t[3] + (i - L::kB2);
-  if (i < L::kB3) return ts.t[4] + (i - L::kW3);
-  return ts.t[5] + (i - L::kB3);
-}
-
-__host__ __device__ constexpr int align4(int n) { return (n + 3) & ~3; }
-
-// the parameters owned by each CTA of the cluster: a slice of kSlice (a
-// multiple of 4, so that slices are whole float4 quads)
-template <int S>
-constexpr int kSlice = align4((Layout<S>::kPadded + kCluster - 1) / kCluster);
-
-// length of rank r's slice (the last one is shorter)
-template <int S>
-__device__ __forceinline__ int slice_len(int r) {
-  return min(kSlice<S>, Layout<S>::kPadded - r * kSlice<S>);
-}
 
 // offsets, in floats, of one CTA's shared memory with `cols` columns; every
 // CTA of the cluster has the same layout, so a peer's parameters and partial
@@ -142,20 +88,6 @@ __device__ __forceinline__ float sqrt_approx(float x) {
   float r;
   asm("sqrt.approx.f32 %0, %1;" : "=f"(r) : "f"(x));
   return r;
-}
-
-__device__ __forceinline__ void fma4(float& acc, const float4& a, const float4& b) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  acc = fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ void fma4(float4& acc, const float4& a, float b) {
-  acc.x = fmaf(a.x, b, acc.x);
-  acc.y = fmaf(a.y, b, acc.y);
-  acc.z = fmaf(a.z, b, acc.z);
-  acc.w = fmaf(a.w, b, acc.w);
 }
 
 template <int S>
@@ -237,11 +169,11 @@ online_adapt_kernel(const float* __restrict__ y, const int* __restrict__ states,
     __syncthreads();
 
     // ---- h2 = relu(W2 h1 + b2): 2 rows x 2 columns per thread ----
-    for (int i = tid; i < pairs * kRowTiles; i += kThreads) {
-      const int j = i % kRowTiles, t = 2 * (i / kRowTiles);
+    for (int i = tid; i < pairs * kHalf; i += kThreads) {
+      const int j = i % kHalf, t = 2 * (i / kHalf);
       const bool two = t + 1 < tl;
       const float4* wa = reinterpret_cast<const float4*>(W2 + j * kH1);
-      const float4* wb = reinterpret_cast<const float4*>(W2 + (j + kRowTiles) * kH1);
+      const float4* wb = reinterpret_cast<const float4*>(W2 + (j + kHalf) * kH1);
       const float4* ha = reinterpret_cast<const float4*>(H1 + t * kH1);
       const float4* hb = reinterpret_cast<const float4*>(H1 + (two ? t + 1 : t) * kH1);
       float a00 = 0.0f, a01 = 0.0f, a10 = 0.0f, a11 = 0.0f;
@@ -254,10 +186,10 @@ online_adapt_kernel(const float* __restrict__ y, const int* __restrict__ states,
         fma4(a11, x1, h1);
       }
       H2[t * kLd2 + j] = fmaxf(a00 + B2[j], 0.0f);
-      H2[t * kLd2 + j + kRowTiles] = fmaxf(a10 + B2[j + kRowTiles], 0.0f);
+      H2[t * kLd2 + j + kHalf] = fmaxf(a10 + B2[j + kHalf], 0.0f);
       if (two) {
         H2[(t + 1) * kLd2 + j] = fmaxf(a01 + B2[j], 0.0f);
-        H2[(t + 1) * kLd2 + j + kRowTiles] = fmaxf(a11 + B2[j + kRowTiles], 0.0f);
+        H2[(t + 1) * kLd2 + j + kHalf] = fmaxf(a11 + B2[j + kHalf], 0.0f);
       }
     }
     __syncthreads();

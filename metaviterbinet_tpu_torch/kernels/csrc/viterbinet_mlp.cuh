@@ -27,7 +27,7 @@
 // Rounding: every add and multiply outside the products is an explicit
 // _rn intrinsic, so nvcc contracts nothing; the tensor cores sum the
 // products in another order than the plain PyTorch version
-// (kernels/acs.py::_bf16_priors), so near-ties may flip rarely.
+// (kernels/acs.py::bf16_priors), so near-ties may flip rarely.
 #pragma once
 
 #include <cuda_bf16.h>

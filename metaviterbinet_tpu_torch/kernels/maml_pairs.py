@@ -8,7 +8,7 @@ autograd (train/meta.py::maml_pair_step), each pair about 243 small kernels
 under an IF node of its own, and a by-word meta run spent nine tenths of
 its device time there (PERF.md). K7 runs a chunk of pairs in ONE launch of
 a cluster of CLUSTER_SIZE thread blocks, K6's layout (kernels/
-online_sgd.py): for each pair i whose `take[i]` holds, in order,
+online_sgd.py, csrc/viterbinet_cluster.cuh): for each pair i whose `take[i]` holds, in order,
   1. the support's CE over its trellis states and its gradient g_s at theta;
   2. theta' = theta - meta_lr * g_s;
   3. the query's CE and its gradient g_q at theta' (the CE added to `loss`);
@@ -36,11 +36,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from metaviterbinet_tpu_torch.kernels.acs import (
-    SUPPORTED_STATES, _check_f32, _check_launch, _library, _route)
+from metaviterbinet_tpu_torch.kernels.native import (
+    F32, INT, PTR, check_f32, counted, launched, load, route)
 from metaviterbinet_tpu_torch.kernels.online_sgd import (
-    CLUSTER_SIZE, MAX_SMEM_BYTES, _align4, _n_params)
-from metaviterbinet_tpu_torch.models.viterbinet import HIDDEN1, HIDDEN2, PARAM_NAMES
+    CLUSTER_SIZE, MAX_SMEM_BYTES, align4, check_network, n_params)
+from metaviterbinet_tpu_torch.models.viterbinet import HIDDEN1, PARAM_NAMES
 from metaviterbinet_tpu_torch.train.optim import ADAM_B1, ADAM_B2, ADAM_EPS, OptState
 
 # floats of one column's activations (csrc/maml_pairs.cu::Smem): the
@@ -49,6 +49,9 @@ from metaviterbinet_tpu_torch.train.optim import ADAM_B1, ADAM_B2, ADAM_EPS, Opt
 # query's and then the product's own take in turn (h1 or R h1 and dh1 [100],
 # h2 or R h2 and dz2 or R dz2 [52], then dlogits or R dlogits [S + 1])
 _COLUMN = 2 * HIDDEN1 + 2 * 52
+
+# the argument types of csrc/maml_pairs.cu's C function
+MAML_PAIRS_ABI = (PTR,) * 26 + (INT,) * 6 + (F32,) * 7 + (PTR,)
 
 
 def smem_bytes(n_support: int, n_query: int, S: int) -> int:
@@ -60,8 +63,8 @@ def smem_bytes(n_support: int, n_query: int, S: int) -> int:
     to a multiple of 4)."""
     cs = -(-n_support // CLUSTER_SIZE)
     cw = max(cs, -(-n_query // CLUSTER_SIZE))
-    return 4 * (4 * _align4(_n_params(S)) + 4 + 4 * _align4(cw) + cs * _COLUMN
-                + 2 * _align4(cs * (S + 1)) + cw * _COLUMN + _align4(cw * (S + 1)))
+    return 4 * (4 * align4(n_params(S)) + 4 + 4 * align4(cw) + cs * _COLUMN
+                + 2 * align4(cs * (S + 1)) + cw * _COLUMN + align4(cw * (S + 1)))
 
 
 def _columns(p: dict[str, torch.Tensor]) -> tuple[torch.Tensor, ...]:
@@ -174,22 +177,10 @@ def _check(params, opt_state, table, s_rx, s_states, q_rx, q_states, take, loss)
         raise ValueError(f"{name}: loss (0-d) and the factors table must lie on {device}")
     if table.dim() != 2 or table.shape[1] != 2 or table.dtype != torch.float32:
         raise ValueError(f"{name}: the factors table must be [n, 2] float32")
-    S = params["w3"].shape[0]
-    shapes = {"w1": (HIDDEN1, 1), "b1": (HIDDEN1,), "w2": (HIDDEN2, HIDDEN1),
-              "b2": (HIDDEN2,), "w3": (S, HIDDEN2), "b3": (S,)}
-    if S not in SUPPORTED_STATES or any(tuple(params[k].shape) != shapes[k] for k in PARAM_NAMES):
-        raise ValueError(f"{name}: expected a 1-100-50-S network with S in {SUPPORTED_STATES}")
-    for k in PARAM_NAMES:
-        for t in (params[k], opt_state.mu[k], opt_state.nu[k]):
-            if t.shape != shapes[k] or t.device != device or not t.is_contiguous():
-                raise ValueError(f"{name}: {k} or its moments not contiguous {shapes[k]} on "
-                                 f"{device}")
-    count = opt_state.count
-    if count.device != device or count.dtype != torch.int32 or count.dim() != 0:
-        raise ValueError(f"{name}: the count must be a 0-d int32 tensor on {device}")
-    return S
+    return check_network(name, params, opt_state, device)
 
 
+@counted
 def maml_pairs_viterbinet(params: dict[str, torch.Tensor], opt_state: OptState,
                           table: torch.Tensor, s_rx: torch.Tensor, s_states: torch.Tensor,
                           q_rx: torch.Tensor, q_states: torch.Tensor, take: torch.Tensor,
@@ -208,31 +199,26 @@ def maml_pairs_viterbinet(params: dict[str, torch.Tensor], opt_state: OptState,
     read."""
     name = "maml_pairs_viterbinet"
     S = _check(params, opt_state, table, s_rx, s_states, q_rx, q_states, take, loss)
-    if not _route(name, s_rx):
+    if not route(name, s_rx):
         maml_pairs_viterbinet_plain(params, opt_state, table, s_rx, s_states, q_rx, q_states,
                                     take, loss, meta_lr, lr, second_order)
         return
     for t in (s_rx, q_rx, loss, *params.values(), *opt_state.mu.values(),
               *opt_state.nu.values()):
-        _check_f32(name, t, t.dim(), s_rx.device)
+        check_f32(name, t, t.dim(), s_rx.device)
     chunk, n_s = s_rx.shape
     n_q = q_rx.shape[1]
     if smem_bytes(n_s, n_q, S) > MAX_SMEM_BYTES:
         raise ValueError(f"{name}: {n_s} support and {n_q} query symbols need "
                          f"{smem_bytes(n_s, n_q, S)} bytes of shared memory per CTA of a "
                          f"{CLUSTER_SIZE}-CTA cluster, more than a CTA has ({MAX_SMEM_BYTES})")
-    lib = _library("maml_pairs")
     ptrs = [t.data_ptr() for group in (params, opt_state.mu, opt_state.nu)
             for t in (group[k] for k in PARAM_NAMES)]
     with torch.cuda.device(s_rx.device):
-        rc = lib.maml_pairs(
+        rc = load("maml_pairs", MAML_PAIRS_ABI)(
             s_rx.data_ptr(), s_states.data_ptr(), q_rx.data_ptr(), q_states.data_ptr(),
             take.data_ptr(), *ptrs, opt_state.count.data_ptr(), table.data_ptr(),
             loss.data_ptr(), chunk, n_s, n_q, S, table.shape[0], int(second_order),
             meta_lr, lr, ADAM_B1, ADAM_B2, 1 - ADAM_B1, 1 - ADAM_B2, ADAM_EPS,
             torch.cuda.current_stream(s_rx.device).cuda_stream)
-    _check_launch(name, rc)
-    maml_pairs_viterbinet.launches += 1
-
-
-maml_pairs_viterbinet.launches = 0
+    launched(maml_pairs_viterbinet, rc)

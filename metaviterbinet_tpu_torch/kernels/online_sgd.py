@@ -32,24 +32,53 @@ import functools
 import numpy as np
 import torch
 
-from metaviterbinet_tpu_torch.kernels.acs import (
-    SUPPORTED_STATES, _check_f32, _check_launch, _library, _route)
+from metaviterbinet_tpu_torch.kernels.acs import SUPPORTED_STATES
+from metaviterbinet_tpu_torch.kernels.native import (
+    F32, INT, PTR, check_f32, counted, launched, load, route)
 from metaviterbinet_tpu_torch.models.viterbinet import HIDDEN1, HIDDEN2, PARAM_NAMES
 from metaviterbinet_tpu_torch.utils import profiling
 
+# The cluster layout that K6 and K7 (kernels/maml_pairs.py) share, as
+# csrc/viterbinet_cluster.cuh declares it for both kernels.
 MAX_SMEM_BYTES = 232448  # shared memory one CTA may use on an H100
-# CTAs of the kernel's thread-block cluster, fixed in csrc/online_adapt.cu
-# (kCluster): 16, the largest an H100 allows, measured faster than the
-# portable 8 (PERF.md)
+# CTAs of the kernels' thread-block cluster, fixed in
+# csrc/viterbinet_cluster.cuh (kCluster): 16, the largest an H100 allows,
+# measured faster than the portable 8 (PERF.md)
 CLUSTER_SIZE = 16
 
+# the argument types of csrc/online_adapt.cu's C function
+ONLINE_ADAPT_ABI = (PTR,) * 20 + (INT,) * 3 + (F32,) * 7 + (PTR,) * 2
 
-def _n_params(S: int) -> int:
+
+def n_params(S: int) -> int:
+    """The parameters of a 1-100-50-S network."""
     return HIDDEN1 * 2 + HIDDEN2 * (HIDDEN1 + 1) + S * (HIDDEN2 + 1)
 
 
-def _align4(n: int) -> int:
+def align4(n: int) -> int:
     return (n + 3) // 4 * 4
+
+
+def check_network(name: str, params: dict[str, torch.Tensor], opt_state,
+                  device: torch.device) -> int:
+    """The state K6 and K7 update in place: a 1-100-50-S network's
+    parameters (S in SUPPORTED_STATES) and their Adam moments, each
+    contiguous in its tensor's shape on `device`, and the step count, a 0-d
+    int32 tensor there. Returns S."""
+    S = params["w3"].shape[0]
+    shapes = {"w1": (HIDDEN1, 1), "b1": (HIDDEN1,), "w2": (HIDDEN2, HIDDEN1),
+              "b2": (HIDDEN2,), "w3": (S, HIDDEN2), "b3": (S,)}
+    if S not in SUPPORTED_STATES or any(tuple(params[k].shape) != shapes[k] for k in PARAM_NAMES):
+        raise ValueError(f"{name}: expected a 1-100-50-S network with S in {SUPPORTED_STATES}")
+    for k in PARAM_NAMES:
+        for t in (params[k], opt_state.mu[k], opt_state.nu[k]):
+            if t.shape != shapes[k] or t.device != device or not t.is_contiguous():
+                raise ValueError(f"{name}: {k} or its moments not contiguous {shapes[k]} on "
+                                 f"{device}")
+    count = opt_state.count
+    if count.device != device or count.dtype != torch.int32 or count.dim() != 0:
+        raise ValueError(f"{name}: the count must be a 0-d int32 tensor on {device}")
+    return S
 
 
 def smem_bytes(T: int, S: int) -> int:
@@ -59,7 +88,7 @@ def smem_bytes(T: int, S: int) -> int:
     4), y and the labels, and per column h1 [100], h2 and dz2 [52 each] and
     the logits [S + 1]."""
     cols = -(-T // CLUSTER_SIZE)
-    return 4 * (2 * _align4(_n_params(S)) + 2 * _align4(cols)
+    return 4 * (2 * align4(n_params(S)) + 2 * align4(cols)
                 + cols * (HIDDEN1 + 2 * 52 + S + 1))
 
 
@@ -96,22 +125,15 @@ def power_table(b1: float, b2: float, device: torch.device) -> torch.Tensor:
 def _check(params, opt_state, y, states) -> int:
     """Validate the arguments; returns S."""
     name = "online_adapt_viterbinet"
-    _check_f32(name, y, 1, y.device)
+    check_f32(name, y, 1, y.device)
     T = y.shape[0]
     if states.dtype != torch.int32 or states.shape != (T,) or not states.is_contiguous():
         raise ValueError(f"{name}: states must be a contiguous int32 tensor of len(y) = {T}")
     if states.device != y.device:
         raise ValueError(f"{name}: states on {states.device}, y on {y.device}")
-    S = params["w3"].shape[0]
-    shapes = {"w1": (HIDDEN1, 1), "b1": (HIDDEN1,), "w2": (HIDDEN2, HIDDEN1),
-              "b2": (HIDDEN2,), "w3": (S, HIDDEN2), "b3": (S,)}
-    if S not in SUPPORTED_STATES or any(tuple(params[k].shape) != shapes[k] for k in PARAM_NAMES):
-        raise ValueError(f"{name}: expected a 1-100-50-S network with S in {SUPPORTED_STATES}")
-    for k in PARAM_NAMES:
-        for t in (params[k], opt_state.mu[k], opt_state.nu[k]):
-            _check_f32(name, t, len(shapes[k]), y.device)
-            if t.shape != shapes[k]:
-                raise ValueError(f"{name}: {k} moment of shape {tuple(t.shape)}")
+    S = check_network(name, params, opt_state, y.device)
+    for t in (*params.values(), *opt_state.mu.values(), *opt_state.nu.values()):
+        check_f32(name, t, t.dim(), y.device)
     return S
 
 
@@ -161,6 +183,7 @@ def online_adapt_viterbinet_plain(params: dict[str, torch.Tensor], opt_state, y:
     opt_state.count.add_(n_iters)
 
 
+@counted
 def online_adapt_viterbinet(params: dict[str, torch.Tensor], opt_state, y: torch.Tensor,
                             states: torch.Tensor, n_iters: int, lr: float, b1: float = 0.9,
                             b2: float = 0.999, eps: float = 1e-8) -> None:
@@ -174,7 +197,7 @@ def online_adapt_viterbinet(params: dict[str, torch.Tensor], opt_state, y: torch
     name = "online_adapt_viterbinet"
     S = _check(params, opt_state, y, states)
     T = y.shape[0]
-    if not _route(name, y):
+    if not route(name, y):
         online_adapt_viterbinet_plain(params, opt_state, y, states, n_iters, lr, b1, b2, eps)
         return
     if smem_bytes(T, S) > MAX_SMEM_BYTES:
@@ -182,22 +205,15 @@ def online_adapt_viterbinet(params: dict[str, torch.Tensor], opt_state, y: torch
                          f"CTA of a {CLUSTER_SIZE}-CTA cluster, more than a CTA has "
                          f"({MAX_SMEM_BYTES})")
     count = opt_state.count
-    if count.device != y.device or count.dtype != torch.int32 or count.dim() != 0:
-        raise ValueError(f"{name}: the count must be a 0-d int32 tensor on {y.device}")
     table = power_table(b1, b2, y.device)
     # b1^count and b2^count, gathered on the device: the kernel reads them
     powers = table.index_select(0, count.clamp(max=table.shape[0] - 1).reshape(1).long())
-    lib = _library("online_adapt")
     ptrs = [t.data_ptr() for group in (params, opt_state.mu, opt_state.nu)
             for t in (group[k] for k in PARAM_NAMES)]
     with torch.cuda.device(y.device):
-        rc = lib.online_adapt(
+        rc = load("online_adapt", ONLINE_ADAPT_ABI)(
             y.data_ptr(), states.data_ptr(), *ptrs, T, S, n_iters,
             lr, b1, b2, 1.0 - b1, 1.0 - b2, eps, 1.0 / T, powers.data_ptr(),
             torch.cuda.current_stream(y.device).cuda_stream)
-    _check_launch(name, rc)
+    launched(online_adapt_viterbinet, rc)
     count.add_(n_iters)
-    online_adapt_viterbinet.launches += 1
-
-
-online_adapt_viterbinet.launches = 0

@@ -20,9 +20,13 @@ arguments the state:
     to device) and then: the first WARMUP_STEPS calls run fn on them
     eagerly on a side stream, each a real call of the run with its own
     inputs, in stream order (torch.cuda.graph needs the warm-up); the next
-    call captures fn into a CUDA graph, which executes nothing, and replays
-    it; every later call replays it. A capture that fails raises with
-    CUDA's error.
+    call captures fn into a CUDA graph on the same stream, which executes
+    nothing, and replays it; every later call replays it. A capture that
+    fails raises with CUDA's error. Every GraphedStep of a device shares
+    that side stream and the stream that captures `when` bodies: a warm-up
+    waits on the current stream both ways and captures run one at a time,
+    so one of each is enough, and cuBLAS keeps a 32 MiB workspace for every
+    stream it runs on.
 
 `when(pred, fn, *args)` is `lax.cond` without an else: fn(*args) runs where
 the 0-d bool tensor `pred` holds. In a GraphedStep's capture it records fn
@@ -49,14 +53,15 @@ opens in a capture are stamped at every replay, and the tracer counts
 `when`'s host branches on a card ("host_syncs"); a graph captured with no
 tracer active holds no stamp.
 
-The kernel wrappers (LAUNCH_COUNTED) count a launch in Python when they
-are called. A capture calls them and executes nothing, and a replay calls
-none, so the capture takes back what the wrappers counted during it and
-each replay adds it again: the counts stay kernel executions. A launch
-inside a `when` body runs only where its predicate holds, which the host
-does not know: the capture records it against a device count of the
-replays whose predicate held (`GraphedStep.conditional`), and the caller
-adds it once, from that count read with its results (`settle`).
+The kernel wrappers count a launch in Python when they are called
+(LAUNCH_COUNTED, the registry of kernels/native.py). A capture calls them
+and executes nothing, and a replay calls none, so the capture takes back
+what the wrappers counted during it and each replay adds it again: the
+counts stay kernel executions. A launch inside a `when` body runs only
+where its predicate holds, which the host does not know: the capture
+records it against a device count of the replays whose predicate held
+(`GraphedStep.conditional`), and the caller adds it once, from that count
+read with its results (`settle`).
 """
 from __future__ import annotations
 
@@ -65,7 +70,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from metaviterbinet_tpu_torch.kernels import acs, maml_pairs, online_sgd
+from metaviterbinet_tpu_torch.kernels.native import INT, LAUNCH_COUNTED, PTR, check_launch, load
 from metaviterbinet_tpu_torch.train.optim import OptState
 from metaviterbinet_tpu_torch.utils import profiling
 
@@ -95,11 +100,8 @@ def chunk_steps(n: int, step_nodes: int) -> int:
                                                             <= MAX_GRAPH_NODES))
 
 
-# the kernel wrappers that count their launches (kernels/acs.py,
-# kernels/online_sgd.py, kernels/maml_pairs.py)
-LAUNCH_COUNTED = (acs.fused_va_detect, acs.fused_viterbinet_detect,
-                  acs.fused_viterbinet_detect_chunked, acs.viterbi_decode_kernel,
-                  online_sgd.online_adapt_viterbinet, maml_pairs.maml_pairs_viterbinet)
+# the argument types of csrc/if_node.cu's C function
+IF_NODE_ABI = (INT, PTR, PTR, PTR)
 
 # the most `when` bodies with counted launches that one capture may hold:
 # their device counts are slots of a buffer made before the capture
@@ -107,6 +109,27 @@ MAX_COUNTED_BODIES = 16
 
 # the GraphedStep whose capture is running
 _capturing: Optional["GraphedStep"] = None
+# device -> (the side stream of warm-ups and captures, the stream that
+# captures `when` bodies), shared by every GraphedStep
+_streams: dict[torch.device, tuple[torch.cuda.Stream, torch.cuda.Stream]] = {}
+
+
+def _side_streams(device: torch.device) -> tuple[torch.cuda.Stream, torch.cuda.Stream]:
+    if device not in _streams:
+        _streams[device] = (torch.cuda.Stream(device), torch.cuda.Stream(device))
+    return _streams[device]
+
+
+def _take_back(before: dict[Callable, int]) -> dict[Callable, int]:
+    """Set each counted wrapper back to its count in `before` (0 for one
+    registered since) and return what each counted since, where it did."""
+    counted = {}
+    for w in LAUNCH_COUNTED:
+        n = before.get(w, 0)
+        if w.launches != n:
+            counted[w] = w.launches - n
+            w.launches = n
+    return counted
 
 
 def when(pred: torch.Tensor, fn: Callable, *args) -> None:
@@ -121,21 +144,16 @@ def when(pred: torch.Tensor, fn: Callable, *args) -> None:
     if _capturing is None:
         raise RuntimeError("when: a conditional node is captured inside a GraphedStep only")
     body, pool = _capturing._body(pred.device)
-    lib = acs._library("if_node")
-    acs._check_launch("if_node", lib.if_node(1, pred.data_ptr(),
-                                             torch.cuda.current_stream().cuda_stream,
-                                             body.cuda_stream))
-    before = [w.launches for w in LAUNCH_COUNTED]
+    if_node = load("if_node", IF_NODE_ABI)
+    check_launch("if_node", if_node(1, pred.data_ptr(), torch.cuda.current_stream().cuda_stream,
+                                    body.cuda_stream))
+    before = {w: w.launches for w in LAUNCH_COUNTED}
     with torch.cuda.stream(body):
         torch._C._cuda_beginAllocateCurrentStreamToPool(pred.device.index, pool)
         fn(*args)
         torch._C._cuda_endAllocateToPool(pred.device.index, pool)
-    acs._check_launch("if_node", lib.if_node(0, None, None, body.cuda_stream))
-    launches = {}
-    for w, n in zip(LAUNCH_COUNTED, before):
-        if w.launches != n:
-            launches[w] = w.launches - n
-            w.launches = n
+    check_launch("if_node", if_node(0, None, None, body.cuda_stream))
+    launches = _take_back(before)
     if launches:
         # a slot of the buffer made before the capture: a tensor allocated in
         # the capture would come from the graph's pool, where a replay may
@@ -185,8 +203,6 @@ class GraphedStep:
     def __init__(self, fn: Callable, name: str, n_state: int = 2):
         self.fn, self.name, self.n_state = fn, name, n_state
         self._entries: dict[tuple, _Entry] = {}
-        self._stream: Optional[torch.cuda.Stream] = None
-        self._body_stream: Optional[torch.cuda.Stream] = None
         # per `when` body of a capture: a device count of the replays whose
         # predicate held, and the launches the body makes in one of them
         self.conditional: list[tuple[torch.Tensor, dict[Callable, int]]] = []
@@ -198,11 +214,9 @@ class GraphedStep:
         """The stream that captures `when` bodies, and a new memory pool for
         the allocations of the body being captured, released when the graph
         being captured is."""
-        if self._body_stream is None:
-            self._body_stream = torch.cuda.Stream(device)
         pool = torch.cuda.graph_pool_handle()
         weakref.finalize(self._graph, torch._C._cuda_releasePool, device.index, pool)
-        return self._body_stream, pool
+        return _side_streams(device)[1], pool
 
     def _count(self, kind: str) -> None:
         GraphedStep.counts.setdefault(self.name, dict.fromkeys(KINDS, 0))[kind] += 1
@@ -245,31 +259,27 @@ class GraphedStep:
         for static, t in zip(entry.static, inputs):
             if static is not None:
                 static.copy_(t)
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(device)
+        side = _side_streams(device)[0]
         if entry.graph is None and entry.warmed < WARMUP_STEPS:
             current = torch.cuda.current_stream(device)
-            self._stream.wait_stream(current)
-            with torch.cuda.stream(self._stream), self._span(tracer, "warmup"):
+            side.wait_stream(current)
+            with torch.cuda.stream(side), self._span(tracer, "warmup"):
                 out = self.fn(*state, *entry.static)
-            current.wait_stream(self._stream)
+            current.wait_stream(side)
             entry.warmed += 1
             self._count("warmup")
             return out
         if entry.graph is None:
             graph = self._graph = torch.cuda.CUDAGraph()
-            before = [w.launches for w in LAUNCH_COUNTED]
+            before = {w: w.launches for w in LAUNCH_COUNTED}
             n_conditional = self._counted_from = len(self.conditional)
             self._hits = torch.zeros(MAX_COUNTED_BODIES, dtype=torch.int32, device=device)
             _capturing = self
-            with self._span(tracer, "capture"), torch.cuda.graph(graph, stream=self._stream):
+            with self._span(tracer, "capture"), torch.cuda.graph(graph, stream=side):
                 entry.out = self.fn(*state, *entry.static)
             _capturing = None
             entry.stamps = None if tracer is None else tracer.buffer
-            for w, n in zip(LAUNCH_COUNTED, before):
-                if w.launches != n:  # counted at the capture, which ran nothing
-                    entry.launches[w] = w.launches - n
-                    w.launches = n
+            entry.launches = _take_back(before)  # counted at the capture, which ran nothing
             for count, _ in self.conditional[n_conditional:]:
                 count.zero_()
             entry.graph = graph

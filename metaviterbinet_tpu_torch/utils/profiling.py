@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import bisect
 import contextlib
+import ctypes
 import os
 import time
 from dataclasses import dataclass
@@ -47,6 +48,7 @@ import numpy as np
 import torch
 
 from metaviterbinet_tpu_torch.device import resolve_device
+from metaviterbinet_tpu_torch.kernels.native import INT, PTR, check_launch, load
 
 
 @contextlib.contextmanager
@@ -110,6 +112,8 @@ FIXED_ROWS = 16
 CALIBRATIONS = 5
 _START, _END, _SUMMARY = 0, CALIBRATIONS, CALIBRATIONS + 1
 OUTSIDE = "outside spans"
+# the argument types of kernels/csrc/stamp.cu's C function
+STAMP_ABI = (PTR, ctypes.c_longlong, ctypes.c_longlong, INT, PTR)
 
 
 def span(name: str, hook: Optional[Callable] = None):
@@ -275,9 +279,7 @@ class Tracer:
             # row 0 the cursor, FIXED_ROWS fixed rows, then the stamps
             self.buffer = torch.zeros((1 + FIXED_ROWS + capacity, 2), dtype=torch.int64,
                                       device=self.device)
-            from metaviterbinet_tpu_torch.kernels import acs
-
-            self._lib, self._check = acs._library("stamp"), acs._check_launch
+            self._stamp_fn = load("stamp", STAMP_ABI)
 
     # ------------------------------------------------------------ stamps
 
@@ -290,7 +292,7 @@ class Tracer:
             else:
                 self._cpu_dropped += 1
             return
-        self._check("stamp", self._lib.stamp(
+        check_launch("stamp", self._stamp_fn(
             self.buffer.data_ptr(), self.capacity, code, fixed,
             torch.cuda.current_stream(self.device).cuda_stream))
 

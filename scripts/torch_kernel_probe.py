@@ -38,7 +38,7 @@ from pathlib import Path
 
 import torch
 
-from metaviterbinet_tpu_torch.kernels import acs, online_sgd
+from metaviterbinet_tpu_torch.kernels import acs, native, online_sgd
 from metaviterbinet_tpu_torch.models import viterbinet
 from metaviterbinet_tpu_torch.ops.trellis import calculate_states
 from metaviterbinet_tpu_torch.train.optim import Optimizer
@@ -122,7 +122,7 @@ K4_SHAPES = ((300, 136, 2, 32), (300, 136, 4, 32), (1, 136, 4, 32), (4096, 136, 
 def sass_counts(name: str) -> dict:
     """Instructions of each S = 16 kernel in the SASS of library `name`."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    text = subprocess.run([tool, "-sass", str(acs.library_path(name))], capture_output=True,
+    text = subprocess.run([tool, "-sass", str(native.library_path(name))], capture_output=True,
                           text=True, check=True).stdout
     counts = {}
     for block in re.split(r"\n\s*Function : ", text)[1:]:
@@ -135,13 +135,13 @@ def sass_counts(name: str) -> dict:
 def k4_variant(model, y, C, chains, warm, steps, blocks, overlap=32):
     """One K4 launch at the given geometry (kernels/acs.py::ChunkedGeometry),
     through its C function (counts no launch); returns the bits."""
-    params = acs._mlp_params(model)
+    params = acs.mlp_params(model)
     out = torch.empty_like(y)
     W, T = y.shape
-    rc = acs._library("viterbinet_detect_chunked").viterbinet_detect_chunked(
+    rc = native.load("viterbinet_detect_chunked", acs.CHUNKED_ABI)(
         y.data_ptr(), *(p.data_ptr() for p in params), out.data_ptr(), W, T, 16, C, overlap,
         chains, warm, steps, blocks, torch.cuda.current_stream().cuda_stream)
-    acs._check_launch("k4_variant", rc)
+    native.check_launch("k4_variant", rc)
     return out
 
 
@@ -152,7 +152,7 @@ def check_detect(g) -> bool:
         model = viterbinet.init_params(S, g, device="cuda")
         y = 2 * torch.randn(64, generator=g, device="cuda")
         got = acs.viterbinet_tile_priors(model, y)
-        want = acs._bf16_priors(model, y[None]).reshape(64, S)
+        want = acs.bf16_priors(model, y[None]).reshape(64, S)
         err = float((got - want).abs().max())
         print(f"K1 tile S={S}: priors max |diff| {err:.3e} vs the plain version "
               f"(limit {smoke.TILE_TOL:g}), {float((got != want).float().mean()):.3f} of them differ",
@@ -190,8 +190,8 @@ def main() -> int:
     card = smoke.card_line()
     print(card)
     t0 = time.time()
-    print("build", acs.build_kernels(), time.time() - t0, flush=True)
-    for n, r in acs.build_reports.items():
+    print("build", native.build_kernels(), time.time() - t0, flush=True)
+    for n, r in native.build_reports.items():
         for line in r.splitlines():
             if any(w in line for w in ("registers", "spill", "error", "warning")):
                 print(n, line.strip())

@@ -104,13 +104,13 @@ def test_kernels_read_unaligned_views(gen, offset):
 @pytest.mark.parametrize("S", [2, 4, 8, 16])
 def test_tensor_core_tile_priors_match_plain(gen, S):
     """One 64-symbol wgmma tile (csrc/viterbinet_mlp.cuh::mlp_tile, the code
-    K1 and K4 run) against `_bf16_priors` on the same samples, within
+    K1 and K4 run) against `bf16_priors` on the same samples, within
     chip_smoke.TILE_TOL (its comment gives the reason)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     model = viterbinet.init_params(S, gen, device="cuda")
     y = 2 * torch.randn(64, generator=gen, device="cuda")
     got = acs.viterbinet_tile_priors(model, y)
-    want = acs._bf16_priors(model, y[None]).reshape(64, S)
+    want = acs.bf16_priors(model, y[None]).reshape(64, S)
     assert float((got - want).abs().max()) <= chip_smoke.TILE_TOL
 
 

@@ -15,6 +15,7 @@ from metaviterbinet_tpu.models import va as jva
 from metaviterbinet_tpu.models import viterbinet as jvnet
 from metaviterbinet_tpu_torch.detectors import DETECTORS
 from metaviterbinet_tpu_torch.kernels import acs as tacs
+from metaviterbinet_tpu_torch.kernels import native
 from metaviterbinet_tpu_torch.models import va as tva
 from metaviterbinet_tpu_torch.models import viterbinet as tvnet
 from metaviterbinet_tpu_torch.weights import params_from_jax
@@ -156,7 +157,7 @@ def test_wrappers_never_fall_back_off_the_cpu():
         tacs.viterbinet_tile_priors(tvnet.ViterbiNet(16, device="cpu"), torch.zeros(64))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
-            tacs._library("va_detect")
+            native.load("va_detect", tacs.VA_DETECT_ABI)
 
 
 def test_chain_geometry_spreads_words_over_the_sms():
@@ -209,9 +210,30 @@ def test_chunked_geometry_at_the_protocol_width():
 
 
 def test_library_path_tracks_sources():
-    a, b = tacs.library_path("va_detect"), tacs.library_path("viterbinet_detect")
-    assert a != b and a.parent == tacs.BUILD_DIR and a.suffix == ".so"
-    assert a == tacs.library_path("va_detect")
+    a, b = native.library_path("va_detect"), native.library_path("viterbinet_detect")
+    assert a != b and a.parent == native.BUILD_DIR and a.suffix == ".so"
+    assert a == native.library_path("va_detect")
+
+
+def test_k6_and_k7_share_one_cluster_layout():
+    """K6 (csrc/online_adapt.cu) and K7 (csrc/maml_pairs.cu) include one
+    header for the layout they share and define none of it themselves, and
+    the header's cluster size and shared-memory ceiling are the Python
+    side's (kernels/online_sgd.py)."""
+    from metaviterbinet_tpu_torch.kernels import online_sgd
+
+    header = (native.CSRC_DIR / "viterbinet_cluster.cuh").read_text()
+    shared = ("constexpr int kH1 ", "constexpr int kCluster ", "constexpr int kGradTiles ",
+              "struct Tensors ", "struct Layout ", "float* element(", "constexpr int align4(",
+              "constexpr int kSlice ", "int slice_len(", "void fma4(")
+    for name in ("online_adapt", "maml_pairs"):
+        src = (native.CSRC_DIR / f"{name}.cu").read_text()
+        assert '#include "viterbinet_cluster.cuh"' in src
+        assert not [d for d in shared if d in src], name
+    assert all(d in header for d in shared)
+    assert f"constexpr int kCluster = {online_sgd.CLUSTER_SIZE};" in header
+    assert f"constexpr int kMaxSmemBytes = {online_sgd.MAX_SMEM_BYTES};" in header
+    assert online_sgd.n_params(16) == 5250 + 51 * 16
 
 
 # ------------------------------------------------------------------ K5, K6

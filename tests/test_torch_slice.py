@@ -233,6 +233,25 @@ def test_entry_points_default_to_the_card():
         bench.main(device="cuda")
 
 
+def test_graphs_and_tracer_import_no_kernel_and_no_model():
+    """The graph layer (online/graphs.py) and the tracer (utils/profiling.py)
+    reach the CUDA code through the kernels' loader (kernels/native.py)
+    only: in a fresh process, importing both loads no other kernel module
+    (not kernels/acs.py) and no module of models/."""
+    code = ("import sys\n"
+            "import metaviterbinet_tpu_torch.utils.profiling\n"
+            "import metaviterbinet_tpu_torch.online.graphs\n"
+            "print(' '.join(m for m in sys.modules if m.startswith('metaviterbinet_tpu_torch')))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT_DIR, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT_DIR, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    loaded = proc.stdout.split()
+    kernels = [m for m in loaded if m.startswith("metaviterbinet_tpu_torch.kernels.")]
+    assert kernels == ["metaviterbinet_tpu_torch.kernels.native"], loaded
+    assert not [m for m in loaded if m.startswith("metaviterbinet_tpu_torch.models")], loaded
+
+
 def test_port_imports_nothing_of_jax(tmp_path):
     """In a process where jax, flax, optax, yaml, msgpack, matplotlib and the
     JAX package cannot be imported (the port depends on none of them):

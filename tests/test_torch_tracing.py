@@ -99,9 +99,17 @@ def test_spans_nest_as_the_engine_opens_them(name):
 def test_graphed_calls_are_direct_on_the_cpu_and_counted_per_run():
     """On the CPU every graphed call is direct (GraphedStep.counts, the
     one count of calls by kind), no kernel wrapper launches, and the
-    tracer's counts of each run read no host sync and no upload."""
+    tracer's counts of each run read no host sync and no upload. The
+    graphs' LAUNCH_COUNTED is the loader's registry, which holds exactly
+    the six kernel wrappers."""
+    from metaviterbinet_tpu_torch.kernels import acs, maml_pairs, native, online_sgd
     from metaviterbinet_tpu_torch.online.graphs import LAUNCH_COUNTED, GraphedStep
 
+    assert LAUNCH_COUNTED is native.LAUNCH_COUNTED
+    assert sorted(LAUNCH_COUNTED, key=id) == sorted(
+        [acs.fused_va_detect, acs.fused_viterbinet_detect, acs.fused_viterbinet_detect_chunked,
+         acs.viterbi_decode_kernel, online_sgd.online_adapt_viterbinet,
+         maml_pairs.maml_pairs_viterbinet], key=id)
     tracer = Tracer("cpu")
     GraphedStep.counts.clear()
     launches = [w.launches for w in LAUNCH_COUNTED]
