@@ -245,12 +245,17 @@ def test_maml_pairs_kernel_matches_plain(gen, label, iterations):
     assert chip_smoke._max_diff(pk, pp) <= chip_smoke.K7_LIMITS[label]
 
 
-@pytest.mark.parametrize("S,T,window", [(16, 300, 1), (4, 40, 2), (2, 33, 1), (8, 5, 3)])
+@pytest.mark.parametrize("S,T,window", [(16, 300, 1), (4, 40, 2), (2, 33, 1), (8, 5, 3),
+                                         (16, 17, 1), (16, 136, 6), (2, 136, 1)])
 def test_maml_pairs_kernel_matches_plain_at_other_shapes(gen, S, T, window):
     """One launch of 6 pairs at other state counts, word lengths and
     windows, some pairs masked, second and first order: within 1e-5 of the
     plain version, the counts and losses equal. T = 5 leaves CTAs of the
-    16-CTA cluster without query columns; T = 300 gives each 19."""
+    16-CTA cluster without query columns; T = 300 gives each 19; T = 17
+    gives ranks 0-7 two columns, rank 8 one and ranks 9-15 none (a tile of
+    the products part empty); window 6 at T = 136 gives each 51 support
+    columns, the most the wrapper takes (many tiles a CTA); S = 2 at T =
+    136 puts 16 lanes on each logit."""
     g = torch.Generator(device="cuda").manual_seed(S + T)
     model = viterbinet.init_params(S, g, device="cuda")
     params = {k: v.detach() for k, v in viterbinet.param_dict(model).items()}

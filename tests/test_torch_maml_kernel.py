@@ -11,6 +11,8 @@ autograd's double backward), so they agree to ~1e-14 of values of order
 1; at float32 against JAX, as tests/test_torch_train.py's pair loop, to
 1e-5.
 """
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,7 +27,9 @@ from metaviterbinet_tpu.train.meta import sorted_unique_mask as j_sorted_unique_
 from metaviterbinet_tpu.train.optim import make_optimizer
 from metaviterbinet_tpu_torch import Config
 from metaviterbinet_tpu_torch.detectors import DETECTORS, with_compute_dtype
+from metaviterbinet_tpu_torch.kernels import native
 from metaviterbinet_tpu_torch.kernels.maml_pairs import maml_pairs_viterbinet, smem_bytes
+from metaviterbinet_tpu_torch.kernels.online_sgd import CLUSTER_SIZE, align4, n_params
 from metaviterbinet_tpu_torch.models import viterbinet as tvnet
 from metaviterbinet_tpu_torch.online.engine import make_meta_steps, uses_fused_maml
 from metaviterbinet_tpu_torch.ops.trellis import calculate_states
@@ -284,6 +288,36 @@ def test_k7_wrapper_validates_inputs():
     # engine's window of 1 at T = 136 fits, up to a window of 6; 7 does not
     assert smem_bytes(136, 136, 16) <= smem_bytes(6 * 136, 136, 16) <= 232448
     assert smem_bytes(7 * 136, 136, 16) > 232448
+
+
+def _kernel_smem_floats(n_support: int, n_query: int, S: int) -> int:
+    """csrc/maml_pairs.cu's Smem<S>(cs, cw).total, its initializer list
+    evaluated line by line with the header's constants."""
+    csrc = native.CSRC_DIR
+    header = (csrc / "viterbinet_cluster.cuh").read_text()
+    src = (csrc / "maml_pairs.cu").read_text()
+    env = {name: int(value) for name, value in
+           re.findall(r"constexpr int (kH1|kLd2) = (\d+);", header)}
+    env.update(align4=lambda n: (n + 3) & ~3, kPadded=align4(n_params(S)), kLdl=S + 1,
+               cs=-(-n_support // CLUSTER_SIZE))
+    env["cw"] = max(env["cs"], -(-n_query // CLUSTER_SIZE))
+    body = re.search(r"constexpr Smem\(int cs, int cw\)\s*:(.*?)\{\}", src, re.S).group(1)
+    for line in body.splitlines():
+        line = line.strip().rstrip(",")
+        if line:
+            name, expr = re.fullmatch(r"(\w+)\((.*)\)", line).groups()
+            env[name] = eval(expr.replace("Layout<S>::", ""), {}, env)
+    return env["total"]
+
+
+@pytest.mark.parametrize("S", [2, 4, 8, 16])
+@pytest.mark.parametrize("n_support,n_query", [(136, 136), (6 * 136, 136), (17, 17), (5, 300),
+                                               (40, 1)])
+def test_k7_smem_bytes_mirrors_the_kernel_layout(S, n_support, n_query):
+    """smem_bytes, which the wrapper checks against a CTA's shared memory
+    before it launches K7, is the kernel's own layout (csrc/maml_pairs.cu::
+    Smem) in bytes."""
+    assert smem_bytes(n_support, n_query, S) == 4 * _kernel_smem_floats(n_support, n_query, S)
 
 
 @pytest.mark.parametrize("fault", sorted(chip_smoke.K7_FAULTS))
